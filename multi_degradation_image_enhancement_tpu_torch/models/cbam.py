@@ -1,0 +1,72 @@
+"""CBAM (Convolutional Block Attention Module), NCHW, inference.
+
+Counterpart of ``multi_degradation_image_enhancement_tpu/models/cbam.py:29-156``
+with the reference's module names (``ChannelGate.mlp.{1,3}``,
+``SpatialGate.spatial.{conv,bn}``), so a reference state_dict loads as is.
+
+Only what CDAN uses is ported: avg + max pools and the spatial gate always
+on.  The ``lp`` / ``lse`` pool variants and ``no_spatial`` are listed in
+ROADMAP.md.  Training-mode BatchNorm semantics wait for the training port.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class BasicConv(nn.Module):
+    """Conv (no bias) → BN(eps 1e-5, momentum 0.01), as the spatial gate uses
+    the reference's ``BasicConv`` (``models/cbam.py:6-20``, ReLU off)."""
+
+    def __init__(self, in_planes: int, out_planes: int, kernel_size: int):
+        super().__init__()
+        self.conv = nn.Conv2d(
+            in_planes, out_planes, kernel_size, padding=kernel_size // 2, bias=False
+        )
+        self.bn = nn.BatchNorm2d(out_planes, eps=1e-5, momentum=0.01)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn(self.conv(x))
+
+
+class ChannelGate(nn.Module):
+    """Shared MLP over the avg- and max-pooled channel vectors, summed before
+    the sigmoid."""
+
+    def __init__(self, gate_channels: int, reduction_ratio: int = 16):
+        super().__init__()
+        self.mlp = nn.Sequential(
+            nn.Flatten(),
+            nn.Linear(gate_channels, gate_channels // reduction_ratio),
+            nn.ReLU(),
+            nn.Linear(gate_channels // reduction_ratio, gate_channels),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        att = self.mlp(x.mean(dim=(2, 3))) + self.mlp(x.amax(dim=(2, 3)))
+        return x * torch.sigmoid(att)[:, :, None, None]
+
+
+class SpatialGate(nn.Module):
+    """[max, mean] over channels (in that order) → 7×7 conv + BN → sigmoid."""
+
+    def __init__(self):
+        super().__init__()
+        self.spatial = BasicConv(2, 1, 7)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        compress = torch.cat([x.amax(dim=1, keepdim=True), x.mean(dim=1, keepdim=True)], dim=1)
+        return x * torch.sigmoid(self.spatial(compress))
+
+
+class CBAM(nn.Module):
+    """Channel gate, then spatial gate (reference ``models/cbam.py:84-95``)."""
+
+    def __init__(self, gate_channels: int, reduction_ratio: int = 16):
+        super().__init__()
+        self.ChannelGate = ChannelGate(gate_channels, reduction_ratio)
+        self.SpatialGate = SpatialGate()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.SpatialGate(self.ChannelGate(x))

@@ -1,0 +1,172 @@
+"""Inference DenseBlock: CUDA kernels (``csrc/dense_block.cu``), the BN fold,
+the parameter pack, and the plain PyTorch version.
+
+Counterpart of ``multi_degradation_image_enhancement_tpu/ops/pallas/
+dense_block_cm.py`` (``_kernel2`` via ``_run_cm2``) and of ``fold_bn`` in
+``ops/pallas/dense_block.py``.  NCHW in and out: ``[B, c_in, H, W]`` →
+``[B, c_in, H, W]`` in x's dtype, with no channel padding.
+
+:func:`dense_block` takes the plain version only for a tensor on the CPU.  For
+a CUDA tensor it launches ``num_layers`` growth kernels and one transition
+kernel, or raises; ``dense_block.launches`` counts every launch.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List
+
+import torch
+import torch.nn.functional as F
+
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
+
+BN_EPS = 1e-5
+
+
+def fold_bn(scale, bias, mean, var, eps: float = BN_EPS):
+    """Inference BatchNorm → per-channel affine ``(a, b)`` with ``a·x + b``."""
+    a = scale / torch.sqrt(var + eps)
+    return a, bias - mean * a
+
+
+@dataclass
+class DenseBlockPack:
+    """A DenseBlock's folded parameters (f32) plus the kernels' bf16 weights.
+
+    Layer ``i`` reads ``c_in + growth·i`` channels; ``w[i]`` is
+    ``[growth, c_i, 3, 3]``; the transition ``wt`` is ``[c_out, c_total]``.
+    """
+
+    c_in: int
+    growth: int
+    a: List[torch.Tensor]
+    b: List[torch.Tensor]
+    w: List[torch.Tensor]
+    bias: List[torch.Tensor]
+    at: torch.Tensor
+    bt: torch.Tensor
+    wt: torch.Tensor
+    biast: torch.Tensor
+    w_bf16: List[torch.Tensor] = field(init=False)
+    wt_bf16: torch.Tensor = field(init=False)
+
+    def __post_init__(self):
+        self.w_bf16 = [w.to(torch.bfloat16).contiguous() for w in self.w]
+        self.wt_bf16 = self.wt.to(torch.bfloat16).contiguous()
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.w)
+
+    @property
+    def c_total(self) -> int:
+        return self.c_in + self.growth * self.num_layers
+
+    @property
+    def c_out(self) -> int:
+        return self.wt.shape[0]
+
+
+@torch.no_grad()
+def pack_dense_block(block, device=None) -> DenseBlockPack:
+    """Fold a ``models.cdan.DenseBlock``'s BatchNorms (eval statistics) and
+    collect its weights for the kernels."""
+
+    def f32(t):
+        return t.detach().to(device=device, dtype=torch.float32).contiguous()
+
+    a, b, w, bias = [], [], [], []
+    for layer in block.layers:
+        bn, conv = layer[0], layer[2]
+        ai, bi = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+        a.append(f32(ai))
+        b.append(f32(bi))
+        w.append(f32(conv.weight))
+        bias.append(f32(conv.bias))
+    bn, conv = block.transition_layer[0], block.transition_layer[2]
+    at, bt = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+    return DenseBlockPack(
+        c_in=block.in_channels,
+        growth=block.growth_rate,
+        a=a, b=b, w=w, bias=bias,
+        at=f32(at), bt=f32(bt), wt=f32(conv.weight[:, :, 0, 0]), biast=f32(conv.bias),
+    )
+
+
+def _activate(feats: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.relu(feats.float() * a[None, :, None, None] + b[None, :, None, None])
+
+
+def dense_block_plain(x: torch.Tensor, pack: DenseBlockPack) -> torch.Tensor:
+    """Plain PyTorch version, with the features held in x's dtype.
+
+    For bf16 x it rounds where the kernel rounds (activated operand, weights,
+    each ``g + bias``, the output); for f32 x it is the block in f32.  Convs
+    accumulate in f32.  ``F.conv2d``'s zero padding pads the activated value,
+    as the kernel's SAME padding does.
+    """
+    dt = x.dtype
+    feats = x
+    for a, b, w, bias in zip(pack.a, pack.b, pack.w, pack.bias):
+        v = _activate(feats, a, b).to(dt).float()
+        g = F.conv2d(v, w.to(dt).float(), bias, padding=1)
+        feats = torch.cat([feats, g.to(dt)], dim=1)
+    vt = _activate(feats, pack.at, pack.bt).to(dt).float()
+    out = F.conv2d(vt, pack.wt.to(dt).float()[:, :, None, None], pack.biast)
+    return out.to(dt)
+
+
+def dense_block(x: torch.Tensor, pack: DenseBlockPack) -> torch.Tensor:
+    """Inference DenseBlock, NCHW ``[B, c_in, H, W]`` → ``[B, c_out, H, W]``.
+
+    On a CUDA tensor (f32 or bf16): one growth-layer launch per layer into a
+    bf16 concat buffer, then the transition launch.  On the CPU: the plain
+    version.
+    """
+    if x.device.type == "cpu":
+        return dense_block_plain(x, pack)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dense_block: x must be float32 or bfloat16, got {x.dtype}")
+    bsz, c_in, h, w = x.shape
+    if c_in != pack.c_in:
+        raise ValueError(f"dense_block: x has {c_in} channels, the pack expects {pack.c_in}")
+    _build.require(x, "x", x.dtype)
+    n_out_groups = -(-pack.growth // 16)  # the growth kernel's gridDim.z is batch x groups
+    _build.require_batch(bsz * n_out_groups, "dense_block")
+    for i in range(pack.num_layers):
+        ci = c_in + pack.growth * i
+        _build.require(pack.a[i], f"a{i}", torch.float32, (ci,))
+        _build.require(pack.b[i], f"b{i}", torch.float32, (ci,))
+        _build.require(pack.w_bf16[i], f"w{i}", torch.bfloat16, (pack.growth, ci, 3, 3))
+        _build.require(pack.bias[i], f"bias{i}", torch.float32, (pack.growth,))
+    c_tot, c_out = pack.c_total, pack.c_out
+    _build.require(pack.at, "at", torch.float32, (c_tot,))
+    _build.require(pack.bt, "bt", torch.float32, (c_tot,))
+    _build.require(pack.wt_bf16, "wt", torch.bfloat16, (c_out, c_tot))
+    _build.require(pack.biast, "biast", torch.float32, (c_out,))
+
+    lib = _build.load()
+    stream = _build.stream_of(x)
+    feats = torch.empty((bsz, c_tot, h, w), dtype=torch.bfloat16, device=x.device)
+    feats[:, :c_in].copy_(x)
+    for i in range(pack.num_layers):
+        err = lib.mdie_growth_layer(
+            feats.data_ptr(), bsz, c_tot, h, w, c_in + pack.growth * i,
+            pack.a[i].data_ptr(), pack.b[i].data_ptr(), pack.w_bf16[i].data_ptr(),
+            pack.bias[i].data_ptr(), pack.growth, stream,
+        )
+        _build.check(err, f"dense_block growth layer {i}")
+        dense_block.launches += 1
+    out = torch.empty((bsz, c_out, h, w), dtype=x.dtype, device=x.device)
+    err = lib.mdie_transition(
+        feats.data_ptr(), bsz, c_tot, h * w, pack.at.data_ptr(), pack.bt.data_ptr(),
+        pack.wt_bf16.data_ptr(), pack.biast.data_ptr(), c_out, out.data_ptr(),
+        int(x.dtype == torch.bfloat16), stream,
+    )
+    _build.check(err, "dense_block transition")
+    dense_block.launches += 1
+    return out
+
+
+dense_block.launches = 0

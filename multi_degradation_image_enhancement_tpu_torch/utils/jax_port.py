@@ -1,0 +1,125 @@
+"""Weight bridge: a Flax CDAN ``{params, batch_stats}`` tree → the port's
+``state_dict``.
+
+The inverse of ``multi_degradation_image_enhancement_tpu/utils/torch_port.py``
+``port_reference_cdan``, with the same mapping table written out again here
+(this package imports nothing of JAX).  The tree is a nested dict of NumPy
+arrays (``jax.tree.map(np.asarray, variables)``); nothing here needs JAX.
+
+Layout conversions (Flax → PyTorch):
+  * conv kernel HWIO → OIHW;
+  * decoder deconvs: the JAX side holds the reference's stride-1
+    ``ConvTranspose2d`` weight ``[in, out, kh, kw]`` as a spatially flipped
+    HWIO conv kernel, so the flip is undone: ``[kh, kw, in, out]`` →
+    ``[in, out, kh, kw]`` then flip kh, kw;
+  * Dense kernel ``[in, out]`` → Linear weight ``[out, in]``;
+  * BatchNorm scale/bias/mean/var → weight/bias/running_mean/running_var.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def _dense_block_entries(flax_prefix: Tuple[str, ...], torch_prefix: str):
+    """``torch_prefix`` ends with a dot, or is empty for a bare DenseBlock."""
+    out = []
+    for i in range(4):
+        out += [
+            (flax_prefix + (f"bn_{i}",), f"{torch_prefix}layers.{i}.0", "bn"),
+            (flax_prefix + (f"conv_{i}",), f"{torch_prefix}layers.{i}.2", "conv"),
+        ]
+    out += [
+        (flax_prefix + ("bn_t",), f"{torch_prefix}transition_layer.0", "bn"),
+        (flax_prefix + ("conv_t",), f"{torch_prefix}transition_layer.2", "conv"),
+    ]
+    return out
+
+
+def _cbam_entries(flax_prefix: Tuple[str, ...], torch_prefix: str):
+    return [
+        (flax_prefix + ("ChannelGate_0", "fc1"), f"{torch_prefix}.ChannelGate.mlp.1", "linear"),
+        (flax_prefix + ("ChannelGate_0", "fc2"), f"{torch_prefix}.ChannelGate.mlp.3", "linear"),
+        (flax_prefix + ("SpatialGate_0", "spatial", "Conv_0"),
+         f"{torch_prefix}.SpatialGate.spatial.conv", "conv_nobias"),
+        (flax_prefix + ("SpatialGate_0", "spatial", "BatchNorm_0"),
+         f"{torch_prefix}.SpatialGate.spatial.bn", "bn"),
+    ]
+
+
+def cdan_mapping():
+    """(Flax module path, PyTorch module prefix, kind) for the whole CDAN."""
+    entries = []
+    for i in range(1, 5):
+        entries += [
+            (("encoder", f"conv{i}", "Conv_0"), f"encoder.conv{i}.conv", "conv"),
+            (("encoder", f"conv{i}", "BatchNorm_0"), f"encoder.conv{i}.bn", "bn"),
+        ]
+    for i in range(1, 4):
+        entries += _dense_block_entries(("encoder", f"dense{i}"), f"encoder.dense{i}.")
+    entries += _cbam_entries(("bottleneck",), "bottleneck")
+    for i in range(1, 5):
+        entries += [
+            (("decoder", f"de{i}_conv"), f"decoder.conv{i}", "deconv"),
+            (("decoder", f"de{i}_bn"), f"decoder.bn{i}", "bn"),
+        ]
+    for i in range(1, 4):
+        entries += _cbam_entries(("decoder", f"cbam{i}"), f"decoder.cbam{i}")
+    entries += _dense_block_entries(("decoder", "final_dense"), "decoder.final_dense.")
+    return entries
+
+
+def _conv(k: np.ndarray) -> np.ndarray:
+    return k.transpose(3, 2, 0, 1)  # HWIO → OIHW
+
+
+def _deconv(k: np.ndarray) -> np.ndarray:
+    return k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # flipped HWIO → [in, out, kh, kw]
+
+
+def _node(tree: Dict[str, Any], path: Tuple[str, ...]) -> Dict[str, Any]:
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def convert_entries(variables: Dict[str, Any], entries) -> Dict[str, torch.Tensor]:
+    """Apply a mapping table to a Flax ``{params, batch_stats}`` tree."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, np.ndarray] = {}
+    for path, prefix, kind in entries:
+        p = _node(params, path)
+        if kind in ("conv", "conv_nobias"):
+            sd[f"{prefix}.weight"] = _conv(np.asarray(p["kernel"]))
+            if kind == "conv":
+                sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+        elif kind == "deconv":
+            sd[f"{prefix}.weight"] = _deconv(np.asarray(p["kernel"]))
+            sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+        elif kind == "linear":
+            sd[f"{prefix}.weight"] = np.asarray(p["kernel"]).T
+            sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+        elif kind == "bn":
+            s = _node(stats, path)
+            sd[f"{prefix}.weight"] = np.asarray(p["scale"])
+            sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+            sd[f"{prefix}.running_mean"] = np.asarray(s["mean"])
+            sd[f"{prefix}.running_var"] = np.asarray(s["var"])
+            sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+        else:
+            raise ValueError(f"unknown mapping kind {kind!r}")
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}  # own, writable copies
+
+
+def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax CDAN ``{params, batch_stats}`` tree → the port's CDAN
+    ``state_dict`` (load with ``strict=True``)."""
+    return convert_entries(variables, cdan_mapping())
+
+
+def dense_block_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax ``DenseBlock`` tree → the port's ``DenseBlock`` ``state_dict``."""
+    return convert_entries(variables, _dense_block_entries((), ""))
