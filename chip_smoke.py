@@ -16,7 +16,16 @@ line per phase, and exits non-zero at the first failure:
 5. the bf16 serving forward with kernels vs the canonical f32 ``CDAN``;
 6. requests through ``serving.build_pipeline`` (B=128·256², then
    B=16·256×384), with launch counters showing both kernels ran;
-7. times (CUDA events): ms/step, img/s, each kernel beside its plain version.
+7. times (CUDA events): ms/step, img/s, each kernel beside its plain version;
+8. growth-train kernels (forward and backward) vs their plain version at the
+   16 layer shapes of a B=16·256×384 train step, f32 I/O;
+9. a whole fp32 train step at 2×256×384, growth kernels vs plain: loss,
+   running statistics, every gradient leaf;
+10. training through the CLI (``run.main`` on noise_synthetic.json cut to one
+    epoch of 64 images, bf16, fused DenseBlocks, BN recalibration), with the
+    growth launch counters reset before it and read after;
+11. times: ms per bf16 train step and img/s; growth forward and backward per
+    step, kernel vs plain.
 
 The last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": {...}}``.
@@ -26,13 +35,22 @@ Weights are random (seeded); no trained checkpoint is needed.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 PKG = "multi_degradation_image_enhancement_tpu_torch"
 BENCH_BATCH, BENCH_SIZE = 128, 256
 EVAL_BATCH, EVAL_HW = 16, (256, 384)
+TRAIN_BATCH = 16
+CLI_IMAGES = 64  # one epoch = four train steps at B=16
+CONFIG = Path("multi_degradation_image_enhancement_tpu") / "config" / "noise_synthetic.json"
+# (block, c_in, (H, W)) of the four DenseBlocks of a B=16·256×384 train step;
+# layer i of a block reads c_in + 16·i channels.
+GT_BLOCKS = [("dense1", 64, (128, 192)), ("dense2", 128, (64, 96)),
+             ("dense3", 256, (32, 48)), ("final_dense", 3, (256, 384))]
 BENCH_STEPS, EVAL_STEPS = 5, 3
 # (block, batch, c_in, (H, W)) as the serving step gives them at the bench
 # (B=128·256²) and eval (B=16·256×384) shapes.
@@ -246,6 +264,233 @@ def phase_requests(torch):
     return launches, step, bench_clean, eval_clean
 
 
+def _growth_inputs(torch, bsz, c, h, w, gen):
+    """Seeded inputs of one growth layer: x, a, b, w (OIHW), bias, cotangent r."""
+    dev = torch.device("cuda")
+
+    def randn(*shape, s=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * s
+
+    return (randn(bsz, c, h, w), torch.rand(c, device=dev, generator=gen) + 0.5,
+            randn(c, s=0.1), randn(16, c, 3, 3, s=0.1), randn(16, s=0.1), randn(bsz, 16, h, w))
+
+
+def _growth_run(torch, fn, x, a, b, w, bias, r):
+    """(g, (dx, da, db, dw)) of ``fn`` with autograd on fresh leaves."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, a, b, w, bias)]
+    g = fn(*leaves)
+    (g * r).sum().backward()
+    return g.detach(), [leaves[i].grad for i in range(4)]
+
+
+def phase_growth_train(torch):
+    """Growth-train kernels vs the plain version at the 16 layer shapes of the
+    train step (B=16), f32 I/O, TF32 off: forward max <= 5e-2, mean <= 5e-3
+    (the DenseBlock contract); dx, da, db, dw each <= 2e-2 * max(scale, 1)
+    (tests/test_growth_train.py:56); the backward is bit-for-bit repeatable."""
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer, growth_layer_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, c_in, (h, w) in GT_BLOCKS:
+        for i in range(4):
+            c = c_in + 16 * i
+            inp = _growth_inputs(torch, TRAIN_BATCH, c, h, w, gen)
+            g, grads = _growth_run(torch, growth_layer, *inp)
+            g_ref, ref = _growth_run(torch, growth_layer_plain, *inp)
+            torch.cuda.synchronize()
+            err = (g - g_ref).abs()
+            worst["fwd"] = max(worst["fwd"], err.max().item())
+            rel = {}
+            for gname, got, want in zip(("dx", "da", "db", "dw"), grads, ref):
+                scale = want.abs().max().item()
+                rel[gname] = (got - want).abs().max().item() / max(scale, 1.0)
+                worst["bwd"] = max(worst["bwd"], (got - want).abs().max().item())
+            say("growth_train", f"{name} c={c} B={TRAIN_BATCH} {h}x{w}: fwd max "
+                f"{err.max().item():.3e} mean {err.mean().item():.3e}; bwd err/max(scale,1) "
+                + " ".join(f"{k} {v:.3e}" for k, v in rel.items()) + " (limit 2e-2)")
+            require(err.max().item() <= 5e-2 and err.mean().item() <= 5e-3,
+                    f"growth forward {name} c={c}")
+            require(all(v <= 2e-2 for v in rel.values()), f"growth backward {name} c={c}")
+            if i == 3:
+                _, again = _growth_run(torch, growth_layer, *inp)
+                require(all(torch.equal(p, q) for p, q in zip(grads, again)),
+                        f"growth backward {name} c={c} is repeatable bit for bit")
+    return worst
+
+
+def growth_times(torch, smi):
+    """Growth forward and backward per train step (the 16 layers at B=16),
+    kernel vs plain (autograd over F.conv2d), by CUDA events."""
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer_bwd, growth_layer_fwd, growth_layer_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    ms = {"fwd": 0.0, "bwd": 0.0, "plain_fwd": 0.0, "plain_bwd": 0.0}
+    for name, c_in, (h, w) in GT_BLOCKS:
+        block = dict.fromkeys(ms, 0.0)
+        for i in range(4):
+            x, a, b, wt, bias, r = _growth_inputs(torch, TRAIN_BATCH, c_in + 16 * i, h, w, gen)
+            w16 = wt.to(torch.bfloat16)
+            block["fwd"] += cuda_ms(lambda: growth_layer_fwd(x, a, b, w16, bias), 5)
+            block["bwd"] += cuda_ms(lambda: growth_layer_bwd(x, r, a, b, w16), 5)
+            with torch.no_grad():
+                block["plain_fwd"] += cuda_ms(lambda: growth_layer_plain(x, a, b, wt, bias), 3)
+            leaves = [t.clone().requires_grad_(True) for t in (x, a, b, wt, bias)]
+            g = growth_layer_plain(*leaves)
+            block["plain_bwd"] += cuda_ms(
+                lambda: torch.autograd.grad(g, leaves, r, retain_graph=True), 3)
+            del g, leaves
+        say("times", f"[{smi}] growth {name} (4 layers, B={TRAIN_BATCH} {h}x{w}): kernel fwd "
+            f"{block['fwd']:.3f} bwd {block['bwd']:.3f} ms; plain fwd {block['plain_fwd']:.3f} "
+            f"bwd {block['plain_bwd']:.3f} ms")
+        for k in ms:
+            ms[k] += block[k]
+    say("times", f"[{smi}] growth layers per train step: kernel fwd {ms['fwd']:.3f} + bwd "
+        f"{ms['bwd']:.3f} = {ms['fwd'] + ms['bwd']:.3f} ms; plain fwd {ms['plain_fwd']:.3f} + "
+        f"bwd {ms['plain_bwd']:.3f} = {ms['plain_fwd'] + ms['plain_bwd']:.3f} ms")
+    return ms
+
+
+def _loss_config():
+    return json.loads(CONFIG.read_text())["loss"]
+
+
+def _train_once(torch, model, fused: bool, plain: bool, batch, masks):
+    """One fp32 ``make_train_step`` on a copy of ``model``: (loss, grads, stats)."""
+    import copy
+
+    from multi_degradation_image_enhancement_tpu_torch.engine.model import make_train_step
+    from multi_degradation_image_enhancement_tpu_torch.engine.state import TrainState
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer_plain,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.ops.losses import build_loss_pipeline
+
+    m = copy.deepcopy(model)
+    m.fused_dense = fused
+    if plain:
+        for block in m.dense_blocks():
+            block.growth_fn = growth_layer_plain
+    state = TrainState.create(m, 1e-3)
+    loss = make_train_step(build_loss_pipeline(_loss_config()), "fp32")(state, *batch, masks)
+    grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+    stats = {n: b.clone() for n, b in m.named_buffers() if n.endswith(("running_mean", "running_var"))}
+    return float(loss["total"]), grads, stats
+
+
+def _worst_rel(got, want):
+    """Worst per-leaf max|got - want| / max|want| over the leaves whose scale
+    is at least 1e-4 (conv biases feeding BatchNorm have zero gradient up to
+    rounding dust; tests/test_growth_train.py skips them the same way)."""
+    return max(((got[k] - want[k]).abs().max().item() / want[k].abs().max().item(), k)
+               for k in want if want[k].abs().max().item() >= 1e-4)
+
+
+def phase_train_step(torch):
+    """A whole fp32 train step (2x256x384, the same weights, batch and dropout
+    masks), growth kernels vs the plain growth layer: losses to 1e-3
+    relative, running statistics to 1e-3, each gradient leaf within the class
+    bound of test_fused_dense_block_gradient_class, max(2 * floor, 0.05), the
+    floor being the plain fused step's own distance from the canonical (all
+    f32) step."""
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import init_cdan
+
+    dev = torch.device("cuda")
+    model = init_cdan(torch.Generator().manual_seed(21)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.rand((2, *EVAL_HW, 3), device=dev, generator=gen)
+    t = torch.clamp(x + 0.1 * torch.randn(x.shape, device=dev, generator=gen), 0.0, 1.0)
+    masks = [torch.rand((2, c, EVAL_HW[0] // p, EVAL_HW[1] // p), device=dev, generator=gen) < 0.8
+             for c, p in ((64, 2), (128, 4), (256, 8), (512, 8))]
+    k_loss, k_grads, k_stats = _train_once(torch, model, True, False, (x, t), masks)
+    p_loss, p_grads, p_stats = _train_once(torch, model, True, True, (x, t), masks)
+    _, c_grads, _ = _train_once(torch, model, False, False, (x, t), masks)
+    torch.cuda.synchronize()
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    stats_err = max((k_stats[n] - p_stats[n]).abs().max().item() for n in p_stats)
+    floor, floor_leaf = _worst_rel(p_grads, c_grads)
+    err, leaf = _worst_rel(k_grads, p_grads)
+    bound = max(2.0 * floor, 0.05)
+    say("train_step", f"2x{EVAL_HW[0]}x{EVAL_HW[1]} fp32, kernels vs plain: loss {k_loss:.6f} vs "
+        f"{p_loss:.6f} (rel {loss_rel:.3e}, limit 1e-3); running stats max {stats_err:.3e} "
+        f"(limit 1e-3); worst gradient leaf {err:.3e} ({leaf}), limit {bound:.3e} = max(2 x "
+        f"floor {floor:.3e} ({floor_leaf}), 0.05)")
+    require(loss_rel <= 1e-3, "train-step loss, kernels vs plain")
+    require(stats_err <= 1e-3, "train-step running statistics, kernels vs plain")
+    require(err <= bound, "train-step gradients, kernels vs plain")
+
+
+def phase_cli_train(torch):
+    """``run.main`` on noise_synthetic.json cut to one epoch of 64 images
+    (four steps at B=16·256x384, bf16, fused DenseBlocks, BN recalibration
+    with 3 passes), on CUDA, with every growth launch counted."""
+    import shutil
+
+    from multi_degradation_image_enhancement_tpu_torch import run
+    from multi_degradation_image_enhancement_tpu_torch.engine.checkpoint import load_weights
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer_bwd, growth_layer_fwd,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
+
+    work = Path("build") / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = json.loads(CONFIG.read_text())
+    cfg["train"].update(n_epoch=1, model_path=str(work / "weights"))
+    cfg["train"]["dataset"]["args"]["n_images"] = CLI_IMAGES
+    cfg["logging"]["root_dir"] = str(work / "runs")
+    (work / "config.json").write_text(json.dumps(cfg))
+    config = load_config(str(work / "config.json"), phase="train")
+    steps = CLI_IMAGES // cfg["train"]["dataloader"]["args"]["batch_size"]
+    passes = cfg["train"]["bn_recalibration"]["passes"]
+
+    growth_layer_fwd.launches = growth_layer_bwd.launches = dense_block.launches = 0
+    t0 = time.perf_counter()
+    engine = run.main(config)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"growth_train_fwd": growth_layer_fwd.launches,
+                "growth_train_bwd": growth_layer_bwd.launches}
+
+    (csv_path,) = (work / "runs").glob("noise_synthetic/*/train.csv")
+    header, row = csv_path.read_text().splitlines()
+    cols = dict(zip(header.split(","), row.split(",")))
+    loss = float(cols["loss_total"])
+    weights = work / "weights" / cfg["train"]["model_name"]
+    load_weights(str(weights), CDAN())  # strict
+    want_fwd, want_bwd = 16 * (steps + passes * steps), 16 * steps
+    say("cli_train", f"{steps} steps B=16x256x384 {engine.precision}, fused_dense "
+        f"{engine.network.fused_dense}, + {passes} recalibration passes in {seconds:.1f} s: "
+        f"epoch loss {loss:.5f}; {weights} loads strictly; launches {launches} (expected fwd "
+        f"{want_fwd} = 16 x ({steps} steps + {passes * steps} recalibration forwards), bwd "
+        f"{want_bwd}); serving dense_block launches {dense_block.launches}")
+    require(cols["type"] == "epoch" and cols["epoch"] == "1", "train.csv has its epoch row")
+    require(math.isfinite(loss) and math.isfinite(engine.best_loss), "losses are finite")
+    require(engine.precision == "bf16" and engine.network.fused_dense, "bf16 with fused DenseBlocks")
+    require(launches["growth_train_fwd"] == want_fwd, "16 growth forwards per forward")
+    require(launches["growth_train_bwd"] == want_bwd, "16 growth backwards per step")
+    require(dense_block.launches == 0, "training runs no inference DenseBlock")
+    return launches, engine
+
+
+def train_times(torch, smi, engine):
+    """Mean ms per bf16 train step at B=16·256x384 after warm-up (CUDA events
+    around 10 steps of the CLI run's engine on one loader batch), and img/s."""
+    inputs, targets, mask = next(iter(engine.dataloader))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    step_ms = cuda_ms(lambda: engine._train_step(engine.state, inputs, targets, gen, mask), 10, 3)
+    say("times", f"[{smi}] train step B={TRAIN_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} bf16, fused "
+        f"DenseBlocks: {step_ms:.3f} ms/step, {TRAIN_BATCH / step_ms * 1e3:.1f} img/s")
+    return step_ms
+
+
 def phase_times(torch, smi, step, bench_clean, eval_clean, packs):
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda import noise
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
@@ -305,6 +550,11 @@ def main() -> int:
     phase_forward(torch, model)
     launches, step, bench_clean, eval_clean = phase_requests(torch)
     times = phase_times(torch, smi, step, bench_clean, eval_clean, packs)
+    gt_err = phase_growth_train(torch)
+    phase_train_step(torch)
+    gt_launches, engine = phase_cli_train(torch)
+    train_times(torch, smi, engine)
+    gt_ms = growth_times(torch, smi)
 
     src = f"{PKG}/csrc"
     ref = "multi_degradation_image_enhancement_tpu/ops/pallas"
@@ -317,6 +567,14 @@ def main() -> int:
          "replaces": f"{ref}/dense_block_cm.py:452", "launches": launches["dense_block"],
          "max_abs_err": db_err, "ms": times["dense_block"][0],
          "plain_ms": times["dense_block"][1]},
+        {"name": "growth_train_fwd", "route": "cuda", "source": f"{src}/growth_train.cu",
+         "replaces": f"{ref}/growth_train.py:86",  # and its tiled variant, :288
+         "launches": gt_launches["growth_train_fwd"], "max_abs_err": gt_err["fwd"],
+         "ms": gt_ms["fwd"], "plain_ms": gt_ms["plain_fwd"]},
+        {"name": "growth_train_bwd", "route": "cuda", "source": f"{src}/growth_train.cu",
+         "replaces": f"{ref}/growth_train.py:178",  # and its tiled variant, :345
+         "launches": gt_launches["growth_train_bwd"], "max_abs_err": gt_err["bwd"],
+         "ms": gt_ms["bwd"], "plain_ms": gt_ms["plain_bwd"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

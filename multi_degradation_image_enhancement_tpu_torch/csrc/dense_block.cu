@@ -21,15 +21,9 @@
 // SAME padding applies to the ACTIVATED value: taps outside the image
 // contribute 0, not relu(b) (the `inside` mask at dense_block_cm.py:490).
 //
-// Bound: the growth layers are ~90% of a DenseBlock's FLOPs (2*9*c_i*G per
-// pixel) at only G = 16 outputs, so they are compute-bound on the FP32 pipes
-// in this simple form (a tensor-core implicit GEMM is later work).  Design:
-// one thread block per 16x32 pixel tile, image and group of 16 outputs; the
-// (tile+2)^2 halo patch of a chunk of 8 input channels is loaded once into
-// shared memory with the affine + ReLU + bf16 rounding applied at load, and
-// the chunk's weights are staged beside it; each thread keeps 2 pixels x 16
-// outputs in f32 registers, reading each weight once per 32 FMAs (broadcast
-// float4 shared loads).  Feature bytes are read ~once per layer from L2/HBM.
+// The growth layer is the shared kernel of growth_layer.cuh (bf16 features in
+// and out, written in place into the concat buffer); see there for its bound
+// and design.
 //
 // The transition is a per-pixel GEMM (c_tot -> c_out, K <= 320): a block
 // takes 64 pixels x (4 * OPT) outputs, stages 32-channel chunks of activated
@@ -40,119 +34,17 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "growth_layer.cuh"
+
 namespace {
 
-// ---------------------------------------------------------------- growth layer
-constexpr int kTileW = 32;          // pixels per tile row (one warp)
-constexpr int kTileH = 16;          // tile rows; each thread takes rows ty, ty + 8
-constexpr int kRowsPerThread = 2;
-constexpr int kThreadsY = kTileH / kRowsPerThread;
-constexpr int kChunk = 8;           // input channels staged per pass
-constexpr int kOutGroup = 16;       // outputs per thread block (growth 16 = 1 group)
-constexpr int kPatchH = kTileH + 2;
-constexpr int kPatchW = kTileW + 2;
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// grid = (ceil(W / 32), ceil(H / 16), B * n_out_groups); block = (32, 8).
-__global__ void __launch_bounds__(kTileW * kThreadsY)
-growth_layer_kernel(__nv_bfloat16* feats, int c_tot, int H, int W, int ci,
-                    const float* __restrict__ a, const float* __restrict__ b,
-                    const __nv_bfloat16* __restrict__ wgt,  // [G, ci, 3, 3]
-                    const float* __restrict__ bias, int G, int n_og) {
-  __shared__ float patch[kChunk][kPatchH][kPatchW];
-  __shared__ __align__(16) float wsm[kChunk][9][kOutGroup];
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTileW + tx;
-  const int og = blockIdx.z % n_og;
-  const int img = blockIdx.z / n_og;
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
-  const long long plane = (long long)H * W;
-  const __nv_bfloat16* src = feats + (long long)img * c_tot * plane;
-
-  float acc[kRowsPerThread][kOutGroup];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-    for (int o = 0; o < kOutGroup; ++o) acc[r][o] = 0.0f;
-
-  for (int c0 = 0; c0 < ci; c0 += kChunk) {
-    // Halo patch of activated values; zero outside the image (SAME padding
-    // of the activated value) and past the last channel.
-    for (int idx = tid; idx < kChunk * kPatchH * kPatchW; idx += kTileW * kThreadsY) {
-      const int c = idx / (kPatchH * kPatchW);
-      const int rem = idx - c * (kPatchH * kPatchW);
-      const int py = rem / kPatchW, px = rem - py * kPatchW;
-      const int gy = y0 + py - 1, gx = x0 + px - 1, cc = c0 + c;
-      float v = 0.0f;
-      if (cc < ci && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const float f = __bfloat162float(src[cc * plane + (long long)gy * W + gx]);
-        v = bf16_round(fmaxf(f * a[cc] + b[cc], 0.0f));
-      }
-      patch[c][py][px] = v;
-    }
-    for (int idx = tid; idx < kChunk * 9 * kOutGroup; idx += kTileW * kThreadsY) {
-      const int c = idx / (9 * kOutGroup);
-      const int rem = idx - c * (9 * kOutGroup);
-      const int t = rem / kOutGroup, o = rem - t * kOutGroup;
-      const int cc = c0 + c, oo = og * kOutGroup + o;
-      wsm[c][t][o] = (cc < ci && oo < G)
-                         ? __bfloat162float(wgt[((long long)oo * ci + cc) * 9 + t])
-                         : 0.0f;
-    }
-    __syncthreads();
-
-    const int n_c = min(kChunk, ci - c0);
-    for (int c = 0; c < n_c; ++c) {
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          float v[kRowsPerThread];
-#pragma unroll
-          for (int r = 0; r < kRowsPerThread; ++r) v[r] = patch[c][ty + r * kThreadsY + ky][tx + kx];
-          const float4* w4 = reinterpret_cast<const float4*>(&wsm[c][ky * 3 + kx][0]);
-#pragma unroll
-          for (int j = 0; j < kOutGroup / 4; ++j) {
-            const float4 w = w4[j];
-#pragma unroll
-            for (int r = 0; r < kRowsPerThread; ++r) {
-              acc[r][4 * j + 0] += v[r] * w.x;
-              acc[r][4 * j + 1] += v[r] * w.y;
-              acc[r][4 * j + 2] += v[r] * w.z;
-              acc[r][4 * j + 3] += v[r] * w.w;
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  __nv_bfloat16* dst = feats + ((long long)img * c_tot + ci) * plane;
-  const int x = x0 + tx;
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int y = y0 + ty + r * kThreadsY;
-    if (x >= W || y >= H) continue;
-#pragma unroll
-    for (int o = 0; o < kOutGroup; ++o) {
-      const int oo = og * kOutGroup + o;
-      if (oo < G) dst[oo * plane + (long long)y * W + x] = __float2bfloat16(acc[r][o] + bias[oo]);
-    }
-  }
-}
+using mdie::bf16_round;
+using mdie::store;
 
 // ------------------------------------------------------------------ transition
 constexpr int kTPix = 64;      // pixels per block
 constexpr int kTGroups = 4;    // output groups per block (threads = 64 * 4)
 constexpr int kTChunk = 32;    // channels staged per pass
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // grid = (ceil(HW / 64), ceil(c_out / (4 * OPT)), B); block = 256.
 template <int OPT, typename TOut>
@@ -236,13 +128,12 @@ extern "C" {
 int mdie_growth_layer(void* feats, int batch, int c_tot, int h, int w, int ci, const void* a,
                       const void* b, const void* wgt, const void* bias, int growth,
                       void* stream) {
-  const int n_og = (growth + kOutGroup - 1) / kOutGroup;
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, batch * n_og);
-  growth_layer_kernel<<<grid, dim3(kTileW, kThreadsY), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<__nv_bfloat16*>(feats), c_tot, h, w, ci, static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<const __nv_bfloat16*>(wgt),
-      static_cast<const float*>(bias), growth, n_og);
-  return static_cast<int>(cudaGetLastError());
+  auto* f = static_cast<__nv_bfloat16*>(feats);
+  return static_cast<int>(mdie::launch_growth_layer<__nv_bfloat16, __nv_bfloat16>(
+      f, c_tot, f, c_tot, ci, batch, h, w, ci,
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const __nv_bfloat16*>(wgt), static_cast<const float*>(bias), growth,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // feats: bf16 [batch, c_tot, hw]; a, b: f32 [c_tot]; wt: bf16 [c_out, c_tot];

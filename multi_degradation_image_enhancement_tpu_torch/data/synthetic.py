@@ -1,0 +1,65 @@
+"""Synthetic paired dataset: clean images made procedurally, pairs degraded
+on the device by the loader (counterpart of
+``multi_degradation_image_enhancement_tpu/data/synthetic.py``).
+
+Only the procedural source is ported; a ``clean_root`` directory of images
+raises (ROADMAP.md, queue 1).  Config usage (a dataset block):
+
+    {"name": ["data.synthetic", "SyntheticPairedDataset"],
+     "args": {"degradation": "noise", "n_images": 512, "seed": 42,
+              "transform": {...}}}
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from multi_degradation_image_enhancement_tpu_torch.data.transforms import build_transforms
+from multi_degradation_image_enhancement_tpu_torch.ops import degradations
+
+
+def _procedural_clean(n: int, h: int, w: int, seed: int = 42) -> np.ndarray:
+    """Deterministic band-limited random RGB images, uint8 ``[n, h, w, 3]``:
+    a sum of six random 2-D cosines plus mild texture, stretched to 0..255.
+    NumPy only, bit-identical to the JAX package's."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    imgs = np.empty((n, h, w, 3), np.float32)
+    for i in range(n):
+        img = np.zeros((h, w, 3), np.float32)
+        for _ in range(6):
+            fy, fx = rng.uniform(0.5, 6.0, 2)
+            phase = rng.uniform(0, 2 * np.pi, 3)
+            amp = rng.uniform(10, 60, 3)
+            base = 2 * np.pi * (fy * yy / h + fx * xx / w)
+            img += amp * np.cos(base[..., None] + phase)
+        img += rng.normal(0, 6.0, (h, w, 3))
+        img = img - img.min()
+        img = img / max(img.max(), 1e-6) * 255.0
+        imgs[i] = img
+    return imgs.astype(np.uint8)
+
+
+class SyntheticPairedDataset:
+    """Clean images whose pairs the loader synthesises on the device with
+    ``ops.degradations.apply_degradation(degradation, clean, generator)``,
+    then the paired transform."""
+
+    paired = True
+
+    def __init__(self, degradation: str = "noise", clean_root: Optional[str] = None,
+                 n_images: int = 512, height: int = 256, width: int = 384, seed: int = 42,
+                 transform: Optional[Dict] = None):
+        degradations._check_name(degradation)  # unknown or not yet ported: raises
+        if clean_root:
+            raise ValueError("SyntheticPairedDataset(clean_root=...) is not ported to PyTorch "
+                             "yet (ROADMAP.md, queue 1); use the procedural source")
+        self.device_degrade = degradation
+        self.backend, self.transform = build_transforms(transform)
+        hw = self.transform.target_hw or (height, width)
+        self.clean = _procedural_clean(n_images, hw[0], hw[1], seed)
+
+    def __len__(self) -> int:
+        return len(self.clean)

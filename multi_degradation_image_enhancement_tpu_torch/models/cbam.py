@@ -1,4 +1,4 @@
-"""CBAM (Convolutional Block Attention Module), NCHW, inference.
+"""CBAM (Convolutional Block Attention Module), NCHW.
 
 Counterpart of ``multi_degradation_image_enhancement_tpu/models/cbam.py:29-156``
 with the reference's module names (``ChannelGate.mlp.{1,3}``,
@@ -6,13 +6,17 @@ with the reference's module names (``ChannelGate.mlp.{1,3}``,
 
 Only what CDAN uses is ported: avg + max pools and the spatial gate always
 on.  The ``lp`` / ``lse`` pool variants and ``no_spatial`` are listed in
-ROADMAP.md.  Training-mode BatchNorm semantics wait for the training port.
+ROADMAP.md.  The spatial gate's BatchNorm follows Flax in train and refresh
+mode (``models.norm.BatchNorm2d``: biased running variance, Flax momentum 0.99
+= torch momentum 0.01, ``cbam.py:29-62``).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from multi_degradation_image_enhancement_tpu_torch.models.norm import BatchNorm2d
 
 
 class BasicConv(nn.Module):
@@ -24,7 +28,7 @@ class BasicConv(nn.Module):
         self.conv = nn.Conv2d(
             in_planes, out_planes, kernel_size, padding=kernel_size // 2, bias=False
         )
-        self.bn = nn.BatchNorm2d(out_planes, eps=1e-5, momentum=0.01)
+        self.bn = BatchNorm2d(out_planes, eps=1e-5, momentum=0.01)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x))

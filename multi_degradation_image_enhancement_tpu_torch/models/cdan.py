@@ -1,4 +1,4 @@
-"""CDAN restoration network, NCHW inside, eval mode.
+"""CDAN restoration network, NCHW inside: eval, train and BN-refresh modes.
 
 Counterpart of ``multi_degradation_image_enhancement_tpu/models/cdan.py`` with
 the reference's module names (``encoder.conv1.conv``, ``encoder.dense1.layers.0``,
@@ -7,26 +7,58 @@ the reference's module names (``encoder.conv1.conv``, ``encoder.dense1.layers.0`
 ``utils.jax_port``.  3,585,663 parameters at growth 16.
 
 The public forward keeps the JAX package's layout: NHWC ``[B, H, W, 3]`` in
-[0, 1] in, the same shape out; H and W multiples of 8.
+[0, 1] in, the same shape out (f32); H and W multiples of 8.
 
 The decoder keeps the reference's ``ConvTranspose2d(k3, s1, p1)`` layers (the
-JAX package runs them as spatially flipped 3×3 convs).  Training-mode
-BatchNorm semantics (biased running variance, momentum) wait for the training
-port; this module is used in eval mode.
+JAX package runs them as spatially flipped 3×3 convs).
+
+Modes (the JAX package's ``train`` / ``stats_refresh`` flags):
+
+* ``model.eval()``: BatchNorm on running statistics, no dropout;
+* ``model.train()``: BatchNorm on batch statistics with Flax semantics (see
+  :class:`BatchNorm2d`), Dropout(0.2) at the four encoder sites;
+* ``model.eval(); model.stats_refresh = True``: batch-statistics BatchNorm
+  updating the running averages, no dropout (``bn_recalibration``).
+
+``model.fused_dense = True`` routes every DenseBlock with growth 16 through
+the trainable growth-layer kernel (``ops.cuda.growth_train``) with
+incremental batch statistics, as ``DenseBlock._fused_impl`` does in the JAX
+package; the variable tree is the same either way.  Compute precision follows
+``torch.autocast`` (convs, linears and the transition product in bf16 under a
+bf16 autocast), while every BatchNorm in train or refresh mode runs in f32.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from multi_degradation_image_enhancement_tpu_torch.models.cbam import CBAM
+from multi_degradation_image_enhancement_tpu_torch.models.norm import BatchNorm2d, channel_stats
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import growth_layer
+
+DROP_RATE = 0.2
+# A dropout source: None (the global RNG), a torch.Generator on the
+# activations' device, or the four keep masks (bool, NCHW) in encoder order.
+Dropout = Union[None, torch.Generator, Sequence[torch.Tensor]]
 
 
 def _bilinear_x2(x: torch.Tensor) -> torch.Tensor:
     """×2 half-pixel bilinear upsample (``jax.image.resize`` bilinear)."""
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+def dropout_keep_mask(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """A Bernoulli(0.8) keep mask (``flax.linen.Dropout``'s ``uniform < keep``)."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - DROP_RATE
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """``where(keep, x / 0.8, 0)``, Flax's inverted dropout."""
+    return torch.where(keep, x / (1.0 - DROP_RATE), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ConvBlock(nn.Module):
@@ -35,7 +67,7 @@ class ConvBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.bn = nn.BatchNorm2d(out_channels)
+        self.bn = BatchNorm2d(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.bn(self.conv(x)))
@@ -44,7 +76,16 @@ class ConvBlock(nn.Module):
 class DenseBlock(nn.Module):
     """4 × (BN → ReLU → 3×3 conv to ``growth_rate``, concat), then
     BN → ReLU → 1×1 transition back to ``in_channels`` (reference
-    ``models/cdan.py:22-53``)."""
+    ``models/cdan.py:22-53``).
+
+    ``fused`` (growth 16 only, as ``cdan.py:142`` of the JAX package): the
+    growth layers run through ``growth_fn`` (the kernel's
+    ``ops.cuda.growth_train.growth_layer``) on f32 features, with BN as a
+    per-channel affine of incremental batch statistics (each layer measures
+    only its 16 new channels) and autograd through the statistics; the
+    transition is an f32 affine + ReLU, then a 1×1 product in the compute
+    dtype (``cdan.py:172-246``).
+    """
 
     num_layers = 4
 
@@ -52,28 +93,67 @@ class DenseBlock(nn.Module):
         super().__init__()
         self.in_channels = in_channels
         self.growth_rate = growth_rate
+        self.fused = False
+        self.stats_refresh = False
+        self.growth_fn = growth_layer
         self.layers = nn.ModuleList()
         c = in_channels
         for _ in range(self.num_layers):
             self.layers.append(
-                nn.Sequential(nn.BatchNorm2d(c), nn.ReLU(), nn.Conv2d(c, growth_rate, 3, padding=1))
+                nn.Sequential(BatchNorm2d(c), nn.ReLU(), nn.Conv2d(c, growth_rate, 3, padding=1))
             )
             c += growth_rate
         self.transition_layer = nn.Sequential(
-            nn.BatchNorm2d(c), nn.ReLU(), nn.Conv2d(c, in_channels, 1)
+            BatchNorm2d(c), nn.ReLU(), nn.Conv2d(c, in_channels, 1)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused and self.growth_rate == 16:
+            return self._fused_forward(x)
         feats = x
         for layer in self.layers:
             feats = torch.cat([feats, layer(feats)], dim=1)
         return self.transition_layer(feats)
 
+    def _affine(self, bn: BatchNorm2d, mus, variances, norm: bool):
+        """BN as ``(a, b)``; in train/refresh mode from the batch statistics,
+        whose running averages it updates."""
+        if norm:
+            mean, var = torch.cat(mus), torch.cat(variances)
+            bn.update_running(mean, var)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        a = bn.weight * torch.rsqrt(var + bn.eps)
+        return a, bn.bias - mean * a
+
+    def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
+        norm = self.training or self.stats_refresh
+        feats = x.float()
+        mus, variances = [], []
+        if norm:
+            mu, var = channel_stats(feats)
+            mus.append(mu)
+            variances.append(var)
+        for layer in self.layers:
+            bn, conv = layer[0], layer[2]
+            a, b = self._affine(bn, mus, variances, norm)
+            g = self.growth_fn(feats, a, b, conv.weight, conv.bias)
+            if norm:
+                mu, var = channel_stats(g)
+                mus.append(mu)
+                variances.append(var)
+            feats = torch.cat([feats, g], dim=1)
+        bn, conv = self.transition_layer[0], self.transition_layer[2]
+        a, b = self._affine(bn, mus, variances, norm)
+        vt = torch.relu(feats * a[None, :, None, None] + b[None, :, None, None])
+        out = torch.einsum("oc,bchw->bohw", conv.weight[:, :, 0, 0], vt)
+        return out + conv.bias.to(out.dtype)[None, :, None, None]
+
 
 class Encoder(nn.Module):
     """Reference ``models/cdan.py:55-98``: ConvBlocks 3→64→128→256→512, a 2×2
     max-pool after the first three, a DenseBlock gate per scale computed on the
-    pooled features, Dropout(0.2) at four places (inert in eval)."""
+    pooled features, Dropout(0.2) at four places (train mode only)."""
 
     def __init__(self, growth_rate: int = 16):
         super().__init__()
@@ -85,18 +165,26 @@ class Encoder(nn.Module):
         self.dense2 = DenseBlock(128, growth_rate)
         self.dense3 = DenseBlock(256, growth_rate)
         self.pool = nn.MaxPool2d(2, 2)
-        self.dropout = nn.Dropout(0.2)
 
-    def forward(self, x: torch.Tensor):
+    def _drop(self, x: torch.Tensor, i: int, dropout: Dropout) -> torch.Tensor:
+        if not self.training:
+            return x
+        if dropout is None or isinstance(dropout, torch.Generator):
+            keep = dropout_keep_mask(x.shape, dropout, x.device)
+        else:
+            keep = dropout[i]
+        return apply_dropout(x, keep)
+
+    def forward(self, x: torch.Tensor, dropout: Dropout = None):
         skips, denses = [], []
         out = x
-        for conv, dense in ((self.conv1, self.dense1), (self.conv2, self.dense2),
-                            (self.conv3, self.dense3)):
+        for i, (conv, dense) in enumerate(((self.conv1, self.dense1), (self.conv2, self.dense2),
+                                           (self.conv3, self.dense3))):
             out = self.pool(conv(out))
             denses.append(dense(out))
-            out = self.dropout(out)
+            out = self._drop(out, i, dropout)
             skips.append(out)
-        out = self.dropout(self.conv4(out))
+        out = self._drop(self.conv4(out), 3, dropout)
         return out, skips, denses
 
 
@@ -111,7 +199,7 @@ class Decoder(nn.Module):
         widths = [(512, 256), (256, 128), (128, 64), (64, 3)]
         for i, (cin, cout) in enumerate(widths, 1):
             setattr(self, f"conv{i}", nn.ConvTranspose2d(cin, cout, 3, stride=1, padding=1))
-            setattr(self, f"bn{i}", nn.BatchNorm2d(cout))
+            setattr(self, f"bn{i}", BatchNorm2d(cout))
         self.cbam1 = CBAM(256)
         self.cbam2 = CBAM(128)
         self.cbam3 = CBAM(64)
@@ -140,9 +228,32 @@ class CDAN(nn.Module):
         self.bottleneck = CBAM(512)
         self.decoder = Decoder(growth_rate)
 
-    def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+    def dense_blocks(self):
+        return [m for m in self.modules() if isinstance(m, DenseBlock)]
+
+    @property
+    def fused_dense(self) -> bool:
+        return all(block.fused for block in self.dense_blocks())
+
+    @fused_dense.setter
+    def fused_dense(self, value: bool) -> None:
+        for block in self.dense_blocks():
+            block.fused = bool(value)
+
+    @property
+    def stats_refresh(self) -> bool:
+        return all(block.stats_refresh for block in self.dense_blocks())
+
+    @stats_refresh.setter
+    def stats_refresh(self, value: bool) -> None:
+        for m in self.modules():
+            if isinstance(m, (DenseBlock, BatchNorm2d)):
+                m.stats_refresh = bool(value)
+
+    def forward(self, x_nhwc: torch.Tensor, dropout: Dropout = None) -> torch.Tensor:
+        """``dropout`` is read in train mode only (see :data:`Dropout`)."""
         x = x_nhwc.permute(0, 3, 1, 2)
-        out, skips, denses = self.encoder(x)
+        out, skips, denses = self.encoder(x, dropout)
         out = self.bottleneck(out)
         out = self.decoder(x, out, skips, denses)
         return out.permute(0, 2, 3, 1).float()

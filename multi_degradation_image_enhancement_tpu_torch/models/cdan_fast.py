@@ -15,6 +15,10 @@ Activations are NCHW in ``dtype`` inside; the forward takes and returns NHWC,
 [0, 1] in, f32 out.  Numerical contract: equals ``CDAN`` in eval mode to bf16
 tolerance at ``dtype=bfloat16`` (the DenseBlock kernel holds features in bf16)
 and to f32 tolerance at ``dtype=float32`` on the CPU.
+
+Inference only: the forward runs under ``torch.inference_mode()`` on frozen
+copies of the weights, and raises when called with grad enabled on an input
+that requires grad (training goes through ``models.cdan.CDAN``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
     dense_block,
     fold_bn,
     pack_dense_block,
+    require_no_grad,
 )
 
 
@@ -89,17 +94,23 @@ def build_fast_apply(
         "final_dense": pack_dense_block(dec.final_dense, device),
     }
     cbams = {
-        name: copy.deepcopy(mod).to(device=device, dtype=dtype).eval()
+        name: copy.deepcopy(mod).to(device=device, dtype=dtype).eval().requires_grad_(False)
         for name, mod in (("bottleneck", model.bottleneck), ("cbam1", dec.cbam1),
                           ("cbam2", dec.cbam2), ("cbam3", dec.cbam3))
     }
+    frozen = [t for wb in folded.values() for t in wb]
+    frozen += [p for mod in cbams.values() for p in mod.parameters()]
 
     def conv_relu(x: torch.Tensor, name: str) -> torch.Tensor:
         w, b = folded[name]
         return torch.relu(F.conv2d(x, w, b, padding=1))
 
-    @torch.inference_mode()
     def apply_fn(x_nhwc: torch.Tensor) -> torch.Tensor:
+        require_no_grad("the serving forward", [x_nhwc, *frozen])
+        with torch.inference_mode():
+            return forward(x_nhwc)
+
+    def forward(x_nhwc: torch.Tensor) -> torch.Tensor:
         x = x_nhwc.to(device=device, dtype=dtype).permute(0, 3, 1, 2).contiguous()
 
         out = F.max_pool2d(conv_relu(x, "conv1"), 2)

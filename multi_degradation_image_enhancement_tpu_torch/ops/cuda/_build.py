@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-All kernels are compiled by one ``nvcc`` call into a shared library with a
-plain C interface, loaded with ``ctypes``:
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/torch_kernels/<hash>/libmdie_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -c csrc/<name>.cu -o build/torch_kernels/<hash>/<name>.o      (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o .../libmdie_kernels.so *.o
 
 The library is built at first use into ``build/torch_kernels/`` at the repo
 root (listed in ``.gitignore``), keyed by a hash of the sources and flags, so a
@@ -29,10 +31,8 @@ _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_ROOT = _PKG_DIR.parent / "build" / "torch_kernels"
 LIB_NAME = "libmdie_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -75,19 +75,38 @@ def build() -> Tuple[Path, float, str]:
     if out.is_file():
         return out, 0.0, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=out.parent))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out, seconds, log
+    jobs = []
+    try:
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = work / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src), "-o", str(obj)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            log = proc.communicate()[0]
+            logs.append(log)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = work / LIB_NAME
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{logs[-1]}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    finally:
+        for _, _, proc in jobs:  # none left running if anything above raised
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return out, time.perf_counter() - t0, "".join(logs)
 
 
 def load():
@@ -114,11 +133,16 @@ def _declare(lib, ctypes) -> None:
         # dense_block.cu
         "mdie_growth_layer": [p, i, i, i, i, i, p, p, p, p, i, p],
         "mdie_transition": [p, i, i, i, p, p, p, p, i, p, i, p],
+        # growth_train.cu
+        "mdie_growth_fwd": [p, i, i, i, i, p, p, p, p, p, p],
+        "mdie_growth_bwd": [p, p, i, i, i, i, p, p, p, p, p, p, p, p, p],
+        "mdie_growth_bwd_scratch": [i, i, i, i],  # returns a float count
     }
+    restypes = {"mdie_growth_bwd_scratch": i64}
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restypes.get(name, ctypes.c_int)
     lib.mdie_error_string.argtypes = [i]
     lib.mdie_error_string.restype = ctypes.c_char_p
 

@@ -8,7 +8,10 @@ dense_block_cm.py`` (``_kernel2`` via ``_run_cm2``) and of ``fold_bn`` in
 
 :func:`dense_block` takes the plain version only for a tensor on the CPU.  For
 a CUDA tensor it launches ``num_layers`` growth kernels and one transition
-kernel, or raises; ``dense_block.launches`` counts every launch.
+kernel, or raises; ``dense_block.launches`` counts every launch.  It is
+inference only: the kernels have no backward, so it raises when grad is
+enabled and x or a pack tensor requires grad, on either device (the
+trainable growth layer is ``ops.cuda.growth_train``).
 """
 
 from __future__ import annotations
@@ -94,6 +97,19 @@ def pack_dense_block(block, device=None) -> DenseBlockPack:
     )
 
 
+def require_no_grad(what: str, tensors) -> None:
+    """Raise if autograd would record through an inference-only kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} is inference only (its kernels have no backward): run it under "
+            "torch.no_grad()/inference_mode(), or train through models.cdan.CDAN"
+        )
+
+
+def _pack_tensors(pack: DenseBlockPack):
+    return [*pack.a, *pack.b, *pack.w, *pack.bias, pack.at, pack.bt, pack.wt, pack.biast]
+
+
 def _activate(feats: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.relu(feats.float() * a[None, :, None, None] + b[None, :, None, None])
 
@@ -122,8 +138,9 @@ def dense_block(x: torch.Tensor, pack: DenseBlockPack) -> torch.Tensor:
 
     On a CUDA tensor (f32 or bf16): one growth-layer launch per layer into a
     bf16 concat buffer, then the transition launch.  On the CPU: the plain
-    version.
+    version.  Raises when grad is enabled and x or the pack requires grad.
     """
+    require_no_grad("dense_block", [x, *_pack_tensors(pack)])
     if x.device.type == "cpu":
         return dense_block_plain(x, pack)
     if x.dtype not in (torch.float32, torch.bfloat16):

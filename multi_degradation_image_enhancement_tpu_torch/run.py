@@ -1,0 +1,74 @@
+"""CLI runner of the PyTorch port (counterpart of ``run.py`` at the repo root):
+
+    python -m multi_degradation_image_enhancement_tpu_torch.run \\
+        -c multi_degradation_image_enhancement_tpu/config/noise_synthetic.json -p train
+
+The same ``-c/-p`` contract and config files as the JAX runner (read as
+files; nothing of the JAX package is imported).  Only ``-p train`` is ported;
+``-p test`` raises (ROADMAP.md, queue 1).  ``train.device`` picks the device:
+``"cuda"``/``"tpu"`` → CUDA (raises without a card), ``"cpu"`` → CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import random
+
+import numpy as np
+import torch
+
+from multi_degradation_image_enhancement_tpu_torch.data.loader import define_dataloader
+from multi_degradation_image_enhancement_tpu_torch.engine.model import resolve_device
+from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
+from multi_degradation_image_enhancement_tpu_torch.utils.logger import ExperimentLogger
+from multi_degradation_image_enhancement_tpu_torch.utils.registry import (
+    create_model,
+    define_dataset,
+    define_network,
+)
+
+
+def build_session(config):
+    """Resolve a config into ``(logger, engine)`` without running anything."""
+    phase = config["phase"]
+    if phase != "train":
+        raise NotImplementedError(f"phase {phase!r} is not ported to PyTorch yet "
+                                  "(ROADMAP.md, queue 1: the eval engine)")
+    random.seed(42)
+    np.random.seed(42)
+    torch.manual_seed(42)
+    phase_cfg = config[phase]
+    device = resolve_device(phase_cfg["device"] or "cpu")
+    logger = ExperimentLogger(config)
+    network = define_network(config["model"]["networks"][0])
+    dataset = define_dataset(phase_cfg["dataset"])
+    dataloader = define_dataloader(dataset, phase_cfg["dataloader"]["args"], device)
+    engine = create_model(config=config, network=network, dataloader=dataloader, logger=logger)
+    return logger, engine
+
+
+def main(config):
+    logger, engine = build_session(config)
+    if logger.run_dir():
+        print(f"[LOGGER] Run dir: {logger.run_dir()}")
+    try:
+        engine.train()
+    finally:
+        logger.close()
+    return engine
+
+
+def _cli():
+    parser = argparse.ArgumentParser(
+        description="Train a restoration task from a JSON config (PyTorch port).")
+    parser.add_argument("-c", "--config", type=str,
+                        default="multi_degradation_image_enhancement_tpu/config/noise_synthetic.json",
+                        help="Path to the JSON configuration file")
+    parser.add_argument("-p", "--phase", type=str, choices=["train", "test"], default="train",
+                        help="Phase to run (only train is ported)")
+    return parser.parse_args()
+
+
+if __name__ == "__main__":
+    args = _cli()
+    main(load_config(args.config, phase=args.phase))

@@ -1,4 +1,4 @@
-"""Weight bridge: a Flax CDAN ``{params, batch_stats}`` tree → the port's
+"""Weight bridge: a Flax CDAN ``{params, batch_stats}`` tree ↔ the port's
 ``state_dict``.
 
 The inverse of ``multi_degradation_image_enhancement_tpu/utils/torch_port.py``
@@ -14,6 +14,9 @@ Layout conversions (Flax → PyTorch):
     ``[in, out, kh, kw]`` then flip kh, kw;
   * Dense kernel ``[in, out]`` → Linear weight ``[out, in]``;
   * BatchNorm scale/bias/mean/var → weight/bias/running_mean/running_var.
+
+:func:`state_dict_to_flax` is the inverse map (NumPy only), so tests can hold
+parameters and statistics after a train step against the JAX package's.
 """
 
 from __future__ import annotations
@@ -80,6 +83,16 @@ def _deconv(k: np.ndarray) -> np.ndarray:
     return k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # flipped HWIO → [in, out, kh, kw]
 
 
+def conv_to_hwio(w: np.ndarray) -> np.ndarray:
+    """OIHW → HWIO (the inverse of :func:`_conv`)."""
+    return np.asarray(w).transpose(2, 3, 1, 0)
+
+
+def _deconv_to_hwio(w: np.ndarray) -> np.ndarray:
+    """``[in, out, kh, kw]`` → the flipped HWIO kernel (the inverse of :func:`_deconv`)."""
+    return np.asarray(w)[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+
+
 def _node(tree: Dict[str, Any], path: Tuple[str, ...]) -> Dict[str, Any]:
     for p in path:
         tree = tree[p]
@@ -123,3 +136,40 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def dense_block_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A Flax ``DenseBlock`` tree → the port's ``DenseBlock`` ``state_dict``."""
     return convert_entries(variables, _dense_block_entries((), ""))
+
+
+def _set(tree: Dict[str, Any], path: Tuple[str, ...], leaf: Dict[str, np.ndarray]) -> None:
+    for p in path:
+        tree = tree.setdefault(p, {})
+    tree.update(leaf)
+
+
+def state_dict_to_flax(sd: Dict[str, Any], entries=None) -> Dict[str, Any]:
+    """The port's CDAN ``state_dict`` (tensors or arrays) → a Flax
+    ``{params, batch_stats}`` tree of NumPy arrays (``entries`` defaults to the
+    whole CDAN's mapping table)."""
+
+    def get(key):
+        v = sd[key]
+        return np.array(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for path, prefix, kind in cdan_mapping() if entries is None else entries:
+        if kind in ("conv", "conv_nobias"):
+            leaf = {"kernel": conv_to_hwio(get(f"{prefix}.weight"))}
+            if kind == "conv":
+                leaf["bias"] = get(f"{prefix}.bias")
+        elif kind == "deconv":
+            leaf = {"kernel": _deconv_to_hwio(get(f"{prefix}.weight")),
+                    "bias": get(f"{prefix}.bias")}
+        elif kind == "linear":
+            leaf = {"kernel": get(f"{prefix}.weight").T, "bias": get(f"{prefix}.bias")}
+        elif kind == "bn":
+            leaf = {"scale": get(f"{prefix}.weight"), "bias": get(f"{prefix}.bias")}
+            _set(stats, path, {"mean": get(f"{prefix}.running_mean"),
+                               "var": get(f"{prefix}.running_var")})
+        else:
+            raise ValueError(f"unknown mapping kind {kind!r}")
+        _set(params, path, {k: np.ascontiguousarray(v) for k, v in leaf.items()})
+    return {"params": params, "batch_stats": stats}

@@ -1,5 +1,6 @@
-"""PyTorch port hygiene: it imports and runs a CPU serving step with JAX
-blocked, refuses CUDA without a card, counts no launch on the plain path, and
+"""PyTorch port hygiene: it imports and runs a CPU serving step and the CPU
+training CLI with JAX blocked, refuses CUDA without a card, counts no launch
+on the plain path, refuses to run its inference kernels under autograd, and
 its C entry points match the CUDA sources."""
 
 import os
@@ -19,7 +20,13 @@ from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
     dense_block,
     pack_dense_block,
 )
+from multi_degradation_image_enhancement_tpu_torch.engine.model import resolve_device
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+    growth_layer_bwd,
+    growth_layer_fwd,
+)
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.noise import noise_degrade_01
+from tests.torch_train_cli import check_tiny_run, write_tiny_config
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG_DIR = ROOT / "multi_degradation_image_enhancement_tpu_torch"
@@ -39,19 +46,26 @@ step, clean = serving.build_pipeline(2, 16, torch.float32, "cpu")
 out = step(clean, torch.Generator().manual_seed(0))
 assert out.shape == (2, 16, 16, 3) and out.dtype == torch.float32
 assert bool(torch.isfinite(out).all()) and 0.0 <= float(out.min()) and float(out.max()) <= 1.0
+from multi_degradation_image_enhancement_tpu_torch import run
+from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
+run.main(load_config(sys.argv[2], phase="train"))
 print("OK", len(mods))
 """
 
 
-def test_port_imports_and_runs_with_jax_blocked():
+def test_port_imports_and_runs_with_jax_blocked(tmp_path):
+    """Every module imports, a serving step runs and the CPU training CLI
+    trains (the tiny config of tests/test_torch_train.py) with JAX blocked."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT)],
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT), str(write_tiny_config(tmp_path))],
         capture_output=True, text=True, timeout=300, cwd=ROOT, env=env,
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 12  # every module of the package was imported
+    last = proc.stdout.splitlines()[-1].split()
+    assert last[0] == "OK"
+    assert int(last[1]) >= 25  # every module of the package was imported
+    check_tiny_run(tmp_path)
 
 
 def test_no_jax_import_in_port_sources():
@@ -69,16 +83,47 @@ def test_cuda_without_a_card_raises():
         serving.build_pipeline(2, 16, torch.bfloat16, "cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_fast_apply(CDAN().eval(), torch.bfloat16, "cuda")
+    for name in ("cuda", "tpu"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(name)
+
+
+def _launches():
+    return (noise_degrade_01.launches, dense_block.launches, growth_layer_fwd.launches,
+            growth_layer_bwd.launches)
 
 
 def test_plain_path_counts_no_launch():
-    n0, d0 = noise_degrade_01.launches, dense_block.launches
+    n0 = _launches()
     noise_degrade_01(torch.full((1, 4, 4, 3), 100.0), torch.tensor([20.0]), 1)
     block = CDAN().encoder.dense1.eval()
     with torch.no_grad():
         out = dense_block(torch.rand(1, 64, 4, 4), pack_dense_block(block))
     assert out.shape == (1, 64, 4, 4)
-    assert (noise_degrade_01.launches, dense_block.launches) == (n0, d0)
+    # a fused training DenseBlock, forward and backward, through the plain growth layer
+    block.train()
+    block.fused = True
+    block(torch.rand(2, 64, 8, 8)).sum().backward()
+    assert block.layers[0][2].weight.grad is not None
+    assert _launches() == n0
+
+
+def test_inference_kernels_refuse_grad():
+    """The serving DenseBlock and forward have no backward: with grad enabled
+    and an input that requires grad they raise instead of silently training
+    nothing; under no_grad they run."""
+    model = CDAN().eval()
+    pack = pack_dense_block(model.encoder.dense1)
+    x = torch.rand(1, 64, 4, 4, requires_grad=True)
+    with pytest.raises(RuntimeError, match="inference only"):
+        dense_block(x, pack)
+    with torch.no_grad():
+        assert dense_block(x, pack).shape == x.shape
+    forward = build_fast_apply(model, torch.float32, "cpu")
+    img = torch.rand(1, 16, 16, 3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="inference only"):
+        forward(img)
+    assert forward(img.detach()).shape == img.shape
 
 
 def test_c_entry_points_exist_in_sources():
@@ -86,7 +131,8 @@ def test_c_entry_points_exist_in_sources():
     src = "\n".join(p.read_text() for p in sorted(_build.CSRC_DIR.glob("*.cu")))
     declared = re.findall(r'"(mdie_\w+)"', Path(_build.__file__).read_text())
     assert {"mdie_noise_degrade", "mdie_philox_bits", "mdie_growth_layer",
-            "mdie_transition"} <= set(declared)
+            "mdie_transition", "mdie_growth_fwd", "mdie_growth_bwd",
+            "mdie_growth_bwd_scratch"} <= set(declared)
     for name in declared + ["mdie_error_string"]:
         assert re.search(rf"\b{name}\(", src), name
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
