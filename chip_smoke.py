@@ -25,7 +25,27 @@ line per phase, and exits non-zero at the first failure:
     epoch of 64 images, bf16, fused DenseBlocks, BN recalibration), with the
     growth launch counters reset before it and read after;
 11. times: ms per bf16 train step and img/s; growth forward and backward per
-    step, kernel vs plain.
+    step, kernel vs plain;
+12. conv kernels vs their plain versions, TF32 off: conv+pool (#9) at conv1
+    of B=128·256² and B=16·256×384, conv (#8) at the seven CM conv shapes of
+    B=128·256²;
+13. the bf16 all-channel-major forward vs the f32 ``CDAN`` at 2×256² and
+    2×256×384, with the default conv table and with every conv on #8;
+14. the DenseBlock kernel at the block shapes where the JAX package takes
+    its row-tiled kernel (#3), ``fused_dense_block_cm`` once, and the
+    per-block forward at 2×480×640 vs the f32 ``CDAN``;
+15. serving steps with ``prefer_cm`` at B=128·256², first with the default
+    conv table, then with every conv on #8, with launch counters;
+16. ``run.main`` ``-p test`` on noise_synthetic.json's test block cut to 64
+    images, scoring the checkpoint of phase 10: as shipped, with
+    ``MDIE_SERVING_TUNING`` naming a tuning copy with ``prefer_cm: true``,
+    and with the test images resized to 480×640 (the #3 route);
+17. times: #8 and #9 vs plain, the CM vs the per-block forward, the eval
+    step per B=16 batch, the whole ``-p test``.
+
+Phases 5, 12-14 and 17 use a CDAN whose BatchNorm statistics keep the whole path
+live (``live_cdan``): with ``init_cdan``'s statistics the decoder's ReLUs
+pass nothing but the global residual.
 
 The last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": {...}}``.
@@ -52,6 +72,16 @@ CONFIG = Path("multi_degradation_image_enhancement_tpu") / "config" / "noise_syn
 GT_BLOCKS = [("dense1", 64, (128, 192)), ("dense2", 128, (64, 96)),
              ("dense3", 256, (32, 48)), ("final_dense", 3, (256, 384))]
 BENCH_STEPS, EVAL_STEPS = 5, 3
+TEST_IMAGES = 64  # the -p test phases score 64 of the test block's 128 images
+PHOTO_HW, PHOTO_IMAGES = (480, 640), 32  # a size where the JAX package takes _run_cm (#3)
+# (layer, c_in, c_out, (H, W)) of the CM forward's 3x3 convs at B=128·256².
+CM_CONVS = [("conv2", 64, 128, (128, 128)), ("conv3", 128, 256, (64, 64)),
+            ("conv4", 256, 512, (32, 32)), ("de1", 512, 256, (32, 32)),
+            ("de2", 256, 128, (32, 32)), ("de3", 128, 64, (64, 64)), ("de4", 64, 3, (128, 128))]
+# (block, batch, c_in, (H, W)) where the JAX package's DenseBlock takes _run_cm
+# (row tiles): final_dense at 480x640 and 512x768 images, dense1 at 512x768.
+TILED_SHAPES = [(name, bsz, c, hw) for bsz in (2, 4) for name, c, hw in (
+    ("final_dense", 3, (480, 640)), ("dense1", 64, (256, 384)), ("final_dense", 3, (512, 768)))]
 # (block, batch, c_in, (H, W)) as the serving step gives them at the bench
 # (B=128·256²) and eval (B=16·256×384) shapes.
 DB_SHAPES = [
@@ -208,6 +238,21 @@ def phase_dense_blocks(torch, model):
         f"{err.mean().item():.3e}")
     require(err.max().item() <= 5e-2 and err.mean().item() <= 5e-3, "f32 I/O kernel vs plain")
     return worst, packs
+
+
+def live_cdan(torch, seed: int):
+    """``init_cdan`` with BatchNorm statistics redrawn so the whole path
+    answers: running means U(-0.05, 0.05), variances U(0.1, 0.3)."""
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import init_cdan
+
+    gen = torch.Generator().manual_seed(seed)
+    model = init_cdan(gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.05, 0.05, generator=gen)
+                m.running_var.uniform_(0.1, 0.3, generator=gen)
+    return model
 
 
 def phase_forward(torch, model):
@@ -529,6 +574,335 @@ def phase_times(torch, smi, step, bench_clean, eval_clean, packs):
     return times
 
 
+def _conv_pairs(torch, model):
+    """(name, pack, x) of conv1's #9 call at both serving shapes and the
+    seven #8 calls at B=128·256², with the model's folded weights and bf16
+    inputs drawn U(0, 1)."""
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import _fold_all
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import pack_conv
+
+    dev = torch.device("cuda")
+    folded = _fold_all(model)
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def rand(*shape):
+        return torch.rand(shape, device=dev, generator=g).to(torch.bfloat16)
+
+    pool = [(f"conv1 B={bsz} {h}x{w}", pack_conv(*folded["conv1"], device=dev), rand(bsz, 3, h, w))
+            for bsz, (h, w) in ((BENCH_BATCH, (BENCH_SIZE, BENCH_SIZE)), (EVAL_BATCH, EVAL_HW))]
+    convs = [(f"{name} {c_in}->{c_out} {h}x{w}", pack_conv(*folded[name], device=dev),
+              rand(BENCH_BATCH, c_in, h, w)) for name, c_in, c_out, (h, w) in CM_CONVS]
+    return pool, convs
+
+
+def phase_conv_kernels(torch, model):
+    """#9 and #8 (bf16 in and out) vs their plain versions on the same bf16
+    inputs in f32, TF32 off: max <= 5e-2, mean <= 5e-3
+    (tests/test_pallas_kernels.py:259-260,299-300)."""
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
+        conv3x3, conv3x3_plain, conv3x3_pool, conv3x3_pool_plain,
+    )
+
+    pool, convs = _conv_pairs(torch, model)
+    worst = {"conv3x3_pool": 0.0, "conv3x3": 0.0}
+    for kname, kern, plain, pairs in (("conv3x3_pool", conv3x3_pool, conv3x3_pool_plain, pool),
+                                      ("conv3x3", conv3x3, conv3x3_plain, convs)):
+        for label, pack, x in pairs:
+            got = kern(x, pack)
+            ref = plain(x.float(), pack)
+            torch.cuda.synchronize()
+            require(got.dtype == torch.bfloat16 and got.shape == ref.shape, f"{kname} {label} shape")
+            err = (got.float() - ref).abs()
+            worst[kname] = max(worst[kname], err.max().item())
+            say("conv_kernels", f"{kname} {label}: max {err.max().item():.3e} (limit 5e-2) mean "
+                f"{err.mean().item():.3e} (limit 5e-3)")
+            require(err.max().item() <= 5e-2 and err.mean().item() <= 5e-3, f"{kname} {label}")
+    return worst
+
+
+def phase_cm_forward(torch, model):
+    """The bf16 CM forward vs the f32 ``CDAN`` at 2x256² and 2x256x384, with
+    the default conv table and with every conv on #8 (7 launches a forward):
+    max <= 2e-2, mean <= 2e-3 (tests/test_cdan_fast.py:108-109)."""
+    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import conv3x3, conv3x3_pool
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    model = model.to(dev)
+    default = dict(cdan_fast._CM_CONV_IMPL)
+    for hw in ((BENCH_SIZE, BENCH_SIZE), EVAL_HW):
+        x = torch.rand((2, *hw, 3), device=dev, generator=g)
+        with torch.inference_mode():
+            ref = model(x)
+        for table in ("default", "kernel"):
+            if table == "kernel":
+                cdan_fast._CM_CONV_IMPL.update(dict.fromkeys(default, "kernel"))
+            try:
+                n0 = (conv3x3.launches, conv3x3_pool.launches)
+                got = cdan_fast.build_fast_apply_cm(model, torch.bfloat16, dev)(x)
+                torch.cuda.synchronize()
+                n = (conv3x3.launches - n0[0], conv3x3_pool.launches - n0[1])
+            finally:
+                cdan_fast._CM_CONV_IMPL.update(default)
+            err = (got - ref).abs()
+            say("cm_forward", f"2x{hw[0]}x{hw[1]} conv table {table}: max {err.max().item():.3e} "
+                f"(limit 2e-2) mean {err.mean().item():.3e} (limit 2e-3); launches conv3x3 {n[0]} "
+                f"conv3x3_pool {n[1]}")
+            require(got.shape == ref.shape and bool(torch.isfinite(got).all()), "CM forward shape")
+            require(err.max().item() <= 2e-2 and err.mean().item() <= 2e-3, f"CM forward {table}")
+            require(n == ((7 if table == "kernel" else 0), 1), "conv launches of one CM forward")
+
+
+def phase_tiled_shapes(torch, model):
+    """The DenseBlock kernel at the shapes where the JAX package takes the
+    row-tiled ``_run_cm`` (#3), vs its plain version in f32 (the DenseBlock
+    limits: max <= 5e-2, mean <= 5e-3); ``fused_dense_block_cm`` once; the
+    whole per-block forward at 2x480x640 vs the f32 ``CDAN`` (2e-2, 2e-3)."""
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_serving_apply
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        dense_block, dense_block_plain, fused_dense_block_cm, pack_dense_block,
+    )
+
+    dev = torch.device("cuda")
+    model = model.to(dev)
+    blocks = {"dense1": model.encoder.dense1, "final_dense": model.decoder.final_dense}
+    packs = {name: pack_dense_block(block, dev) for name, block in blocks.items()}
+    g = torch.Generator(device=dev).manual_seed(15)
+    worst = 0.0
+    for name, bsz, c_in, (h, w) in TILED_SHAPES:
+        x = torch.rand((bsz, c_in, h, w), device=dev, generator=g).to(torch.bfloat16)
+        got = dense_block(x, packs[name])
+        ref = dense_block_plain(x.float(), packs[name])
+        torch.cuda.synchronize()
+        err = (got.float() - ref).abs()
+        worst = max(worst, err.max().item())
+        say("tiled_shapes", f"{name} B={bsz} c={c_in} {h}x{w}: max {err.max().item():.3e} "
+            f"(limit 5e-2) mean {err.mean().item():.3e} (limit 5e-3)")
+        require(err.max().item() <= 5e-2 and err.mean().item() <= 5e-3, f"{name} {h}x{w}")
+    x = torch.rand((2, *PHOTO_HW, 3), device=dev, generator=g)
+    got = fused_dense_block_cm(x, blocks["final_dense"])
+    ref = dense_block_plain(x.permute(0, 3, 1, 2).contiguous(), packs["final_dense"])
+    err = (got - ref.permute(0, 2, 3, 1)).abs()
+    say("tiled_shapes", f"fused_dense_block_cm (NHWC) final_dense 2x{PHOTO_HW[0]}x{PHOTO_HW[1]}: "
+        f"max {err.max().item():.3e} mean {err.mean().item():.3e}")
+    require(got.shape == x.shape and err.max().item() <= 5e-2 and err.mean().item() <= 5e-3,
+            "fused_dense_block_cm vs plain")
+    with torch.inference_mode():
+        ref = model(x)
+        got = build_serving_apply(model, torch.bfloat16, dev, prefer_cm=False)(x)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    say("tiled_shapes", f"per-block forward bf16 vs f32 CDAN at 2x{PHOTO_HW[0]}x{PHOTO_HW[1]}: "
+        f"max {err.max().item():.3e} (limit 2e-2) mean {err.mean().item():.3e} (limit 2e-3)")
+    require(err.max().item() <= 2e-2 and err.mean().item() <= 2e-3, "per-block forward 480x640")
+    return worst
+
+
+def phase_requests_cm(torch):
+    """Serving steps with ``prefer_cm`` at B=128·256²: with the default conv
+    table, one conv+pool and 20 DenseBlock launches a step and no #8 launch;
+    with every conv on #8 (the A/B setting of ``benchmarks/ablate_cm.py``), 7
+    #8 launches a step more.  Returns the launches and both steps."""
+    from multi_degradation_image_enhancement_tpu_torch import serving
+    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import conv3x3, conv3x3_pool
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.noise import noise_degrade_01
+
+    default = dict(cdan_fast._CM_CONV_IMPL)
+    step, clean = serving.build_pipeline(BENCH_BATCH, BENCH_SIZE, torch.bfloat16, "cuda",
+                                         prefer_cm=True)
+    cdan_fast._CM_CONV_IMPL.update(dict.fromkeys(default, "kernel"))
+    try:
+        step_k, _ = serving.build_pipeline(BENCH_BATCH, BENCH_SIZE, torch.bfloat16, "cuda",
+                                           prefer_cm=True)
+    finally:
+        cdan_fast._CM_CONV_IMPL.update(default)
+    gen = torch.Generator().manual_seed(3)
+    launches = {}
+    for table, fn in (("default", step), ("kernel", step_k)):
+        fn(clean, gen)  # warm-up
+        torch.cuda.synchronize()
+        noise_degrade_01.launches = dense_block.launches = 0
+        conv3x3.launches = conv3x3_pool.launches = 0
+        outs = [fn(clean, gen) for _ in range(BENCH_STEPS)]
+        torch.cuda.synchronize()
+        n = {"noise_degrade": noise_degrade_01.launches, "dense_block": dense_block.launches,
+             "conv3x3_pool": conv3x3_pool.launches, "conv3x3": conv3x3.launches}
+        for out in outs:
+            require(tuple(out.shape) == (BENCH_BATCH, BENCH_SIZE, BENCH_SIZE, 3), "output shape")
+            require(bool(torch.isfinite(out).all()) and out.min().item() >= 0.0
+                    and out.max().item() <= 1.0, "outputs finite, in [0, 1]")
+        want = {"noise_degrade": BENCH_STEPS, "dense_block": 20 * BENCH_STEPS,
+                "conv3x3_pool": BENCH_STEPS, "conv3x3": (7 if table == "kernel" else 0) * BENCH_STEPS}
+        say("requests_cm", f"{BENCH_STEPS} steps B={BENCH_BATCH}x{BENCH_SIZE}^2 prefer_cm, conv "
+            f"table {table}: finite, in [0,1]; launches {n} (expected {want})")
+        require(n == want, f"prefer_cm launches, conv table {table}")
+        launches[table] = n
+    return launches, step, step_k, clean
+
+
+def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_IMAGES):
+    """One ``run.main`` ``-p test`` on noise_synthetic.json's test block cut
+    to ``images`` images (optionally resized to ``hw``), scoring the
+    checkpoint in ``ckpt_dir``, every launch counted; returns its record."""
+    import os
+    import shutil
+
+    from multi_degradation_image_enhancement_tpu_torch import run
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import conv3x3, conv3x3_pool
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
+    from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
+
+    work = Path("build") / "chip_smoke_test" / name
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = json.loads(CONFIG.read_text())
+    cfg["test"].update(model_path=str(ckpt_dir))
+    cfg["test"]["dataset"]["args"]["n_images"] = images
+    if hw is not None:
+        for op in cfg["test"]["dataset"]["args"]["transform"]["ops"]:
+            if op["name"] == "Resize":
+                op["args"] = {"height": hw[0], "width": hw[1]}
+    cfg["save_outputs"]["output_dir"] = str(work / "outputs")
+    cfg["logging"]["root_dir"] = str(work / "runs")
+    (work / "config.json").write_text(json.dumps(cfg))
+    config = load_config(str(work / "config.json"), phase="test")
+    bsz = cfg["test"]["dataloader"]["args"]["batch_size"]
+    batches = -(-images // bsz)
+
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        dense_block.launches = conv3x3.launches = conv3x3_pool.launches = 0
+        t0 = time.perf_counter()
+        engine = run.main(config)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"dense_block": dense_block.launches, "conv3x3_pool": conv3x3_pool.launches,
+                    "conv3x3": conv3x3.launches}
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    (csv_path,) = (work / "runs").glob("noise_synthetic/*/test.csv")
+    header, row = csv_path.read_text().splitlines()
+    cols = dict(zip(header.split(","), row.split(",")))
+    summary = json.loads((csv_path.parent / "summary.json").read_text())
+    pngs = sorted((work / "outputs").glob("raw_*.png"))
+    scores = {k: float(cols[k]) for k in ("loss_total", "metric_psnr", "metric_ssim", "metric_lpips")}
+    hw_s = f"{hw[0]}x{hw[1]}" if hw else f"{EVAL_HW[0]}x{EVAL_HW[1]}"
+    say("cli_test", f"{name}: {images} images B={bsz} {hw_s} {engine.precision} in {seconds:.2f} s "
+        f"({images / seconds:.1f} img/s with PNG writes): {scores}; {len(pngs)} PNGs; summary "
+        f"test_batches {summary.get('test_batches')}, pretrained_weights "
+        f"{summary.get('pretrained_weights')}; launches {launches}")
+    require(cols["type"] == "test" and cols["stage"] == "pre" and int(cols["batches"]) == batches,
+            "test.csv has its pre row")
+    require(all(math.isfinite(v) for v in scores.values()), "PRE loss, PSNR, SSIM, LPIPS finite")
+    require(summary.get("test_batches") == batches, "summary.json has its test entries")
+    require(len(pngs) == images, "one PNG per scored image")
+    require(launches["dense_block"] == 20 * batches, "20 DenseBlock launches per batch")
+    return {"seconds": seconds, "launches": launches, "engine": engine, "scores": scores,
+            "batches": batches}
+
+
+def phase_cli_test(torch, train_engine):
+    """``-p test`` through ``run.main``: as shipped (per-block forward),
+    with ``prefer_cm`` from a tuning copy (one #9 launch per batch), and at
+    480x640 (the JAX package's #3 route)."""
+    ckpt_dir = Path(train_engine.model_path)
+    shipped = _cli_test(torch, "shipped", ckpt_dir)
+    require(shipped["launches"]["conv3x3_pool"] == 0, "the shipped tuning runs no conv+pool")
+    tuning = json.loads((CONFIG.parent / "serving_tuning.json").read_text())
+    tuning["prefer_cm"] = True
+    tuning_path = Path("build") / "chip_smoke_test" / "serving_tuning_prefer_cm.json"
+    tuning_path.write_text(json.dumps(tuning))
+    cm = _cli_test(torch, "prefer_cm", ckpt_dir, env={"MDIE_SERVING_TUNING": str(tuning_path)})
+    require(cm["launches"]["conv3x3_pool"] == cm["batches"], "one conv+pool launch per batch")
+    photo = _cli_test(torch, "photo_480x640", ckpt_dir, hw=PHOTO_HW, images=PHOTO_IMAGES)
+    for a, b in (("metric_psnr", 0.5), ("metric_ssim", 0.02)):
+        require(abs(shipped["scores"][a] - cm["scores"][a]) <= b, f"{a}: CM and per-block agree")
+    return shipped, cm, photo
+
+
+def eval_times(torch, smi, model, shipped, step, step_k, clean):
+    """CUDA-event times: #8 and #9 vs plain, the CM vs the per-block
+    forward, the eval step per B=16 batch, the DenseBlock at the photo
+    shape; with the wall time of each ``-p test``."""
+    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
+        conv3x3, conv3x3_plain, conv3x3_pool, conv3x3_pool_plain,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        dense_block, dense_block_plain, pack_dense_block,
+    )
+
+    dev = torch.device("cuda")
+    pool, convs = _conv_pairs(torch, model)
+    times = {}
+    for kname, kern, plain, pairs in (("conv3x3_pool", conv3x3_pool, conv3x3_pool_plain, pool[:1]),
+                                      ("conv3x3", conv3x3, conv3x3_plain, convs)):
+        k_ms = p_ms = 0.0
+        for label, pack, x in pairs:
+            a, b = cuda_ms(lambda: kern(x, pack), 10), cuda_ms(lambda: plain(x, pack), 5)
+            k_ms, p_ms = k_ms + a, p_ms + b
+            say("times", f"[{smi}] {kname} {label} bf16: kernel {a:.3f} ms, plain {b:.3f} ms")
+        times[kname] = (k_ms, p_ms)
+    say("times", f"[{smi}] conv3x3 x7 per B={BENCH_BATCH}x{BENCH_SIZE}^2 CM forward: kernel "
+        f"{times['conv3x3'][0]:.3f} ms, plain {times['conv3x3'][1]:.3f} ms")
+
+    model = model.to(dev)
+    g = torch.Generator(device=dev).manual_seed(16)
+    for bsz, hw in ((BENCH_BATCH, (BENCH_SIZE, BENCH_SIZE)), (EVAL_BATCH, EVAL_HW)):
+        x = torch.rand((bsz, *hw, 3), device=dev, generator=g)
+        cm = cdan_fast.build_fast_apply_cm(model, torch.bfloat16, dev)
+        pb = cdan_fast.build_fast_apply(model, torch.bfloat16, dev)
+        a, b = cuda_ms(lambda: cm(x), 10), cuda_ms(lambda: pb(x), 10)
+        say("times", f"[{smi}] forward B={bsz}x{hw[0]}x{hw[1]} bf16: CM {a:.3f} ms/step, "
+            f"per-block {b:.3f} ms/step")
+    gen = torch.Generator().manual_seed(4)
+    a, b = cuda_ms(lambda: step(clean, gen), 10), cuda_ms(lambda: step_k(clean, gen), 5)
+    say("times", f"[{smi}] degrade->restore prefer_cm B={BENCH_BATCH}x{BENCH_SIZE}^2: default conv "
+        f"table {a:.3f} ms/step ({BENCH_BATCH / a * 1e3:.1f} img/s); every conv on #8 {b:.3f} ms/step")
+
+    engine = shipped["engine"]
+    eval_step = engine._build_eval_step(engine._load_for_eval())
+    inputs, targets, mask = next(iter(engine.dataloader))
+    fwd_ms = cuda_ms(lambda: eval_step(inputs), 10)
+    full_ms = cuda_ms(lambda: eval_step(inputs, targets, mask), 10)
+    say("times", f"[{smi}] eval step B={EVAL_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]}: forward {fwd_ms:.3f} ms"
+        f" + loss and metrics {full_ms - fwd_ms:.3f} ms = {full_ms:.3f} ms per batch")
+    # host wall of one batch's PNGs (copy to the host, 4 writer threads), and
+    # of synthesising the 64-image test set (set-up of every -p test run)
+    out = eval_step(inputs)["raw"]
+    engine.save_cfg["output_dir"] = str(Path("build") / "chip_smoke_test" / "png_timing")
+    t0 = time.perf_counter()
+    engine._save_batch_outputs(out, 0, "t_")
+    engine._drain_writers()
+    png_s = time.perf_counter() - t0
+    engine._writer_pool.shutdown(wait=True)
+    from multi_degradation_image_enhancement_tpu_torch.utils.registry import define_dataset
+
+    t0 = time.perf_counter()
+    define_dataset(engine.config["test"]["dataset"])
+    synth_s = time.perf_counter() - t0
+    say("times", f"[{smi}] -p test host work: PNG writes {png_s * 1e3:.1f} ms per batch of "
+        f"{EVAL_BATCH}; test-set synthesis {synth_s:.2f} s for {TEST_IMAGES} images")
+
+    pack = pack_dense_block(model.decoder.final_dense, dev)
+    x = torch.rand((EVAL_BATCH, 3, *PHOTO_HW), device=dev, generator=g).to(torch.bfloat16)
+    times["dense_block_tiled"] = (cuda_ms(lambda: dense_block(x, pack), 10),
+                                  cuda_ms(lambda: dense_block_plain(x, pack), 5))
+    say("times", f"[{smi}] dense_block final_dense B={EVAL_BATCH} c=3 {PHOTO_HW[0]}x{PHOTO_HW[1]}: "
+        f"kernel {times['dense_block_tiled'][0]:.3f} ms, plain {times['dense_block_tiled'][1]:.3f} ms")
+    return times
+
+
+
 def main() -> int:
     import torch
 
@@ -547,7 +921,8 @@ def main() -> int:
     noise_err = phase_noise(torch)
     model = init_cdan(torch.Generator().manual_seed(0))
     db_err, packs = phase_dense_blocks(torch, model)
-    phase_forward(torch, model)
+    live = live_cdan(torch, 0)
+    phase_forward(torch, live)
     launches, step, bench_clean, eval_clean = phase_requests(torch)
     times = phase_times(torch, smi, step, bench_clean, eval_clean, packs)
     gt_err = phase_growth_train(torch)
@@ -555,6 +930,12 @@ def main() -> int:
     gt_launches, engine = phase_cli_train(torch)
     train_times(torch, smi, engine)
     gt_ms = growth_times(torch, smi)
+    conv_err = phase_conv_kernels(torch, live)
+    phase_cm_forward(torch, live)
+    tiled_err = phase_tiled_shapes(torch, live)
+    cm_launches, step_cm, step_k, clean = phase_requests_cm(torch)
+    shipped, cm_run, photo = phase_cli_test(torch, engine)
+    cm_ms = eval_times(torch, smi, live, shipped, step_cm, step_k, clean)
 
     src = f"{PKG}/csrc"
     ref = "multi_degradation_image_enhancement_tpu/ops/pallas"
@@ -575,6 +956,18 @@ def main() -> int:
          "replaces": f"{ref}/growth_train.py:178",  # and its tiled variant, :345
          "launches": gt_launches["growth_train_bwd"], "max_abs_err": gt_err["bwd"],
          "ms": gt_ms["bwd"], "plain_ms": gt_ms["plain_bwd"]},
+        {"name": "conv3x3_pool", "route": "cuda", "source": f"{src}/conv_cm.cu",
+         "replaces": f"{ref}/conv_pool_cm.py:100", "launches": cm_run["launches"]["conv3x3_pool"],
+         "max_abs_err": conv_err["conv3x3_pool"], "ms": cm_ms["conv3x3_pool"][0],
+         "plain_ms": cm_ms["conv3x3_pool"][1]},
+        {"name": "conv3x3", "route": "cuda", "source": f"{src}/conv_cm.cu",
+         "replaces": f"{ref}/conv_cm.py:49", "launches": cm_launches["kernel"]["conv3x3"],
+         "max_abs_err": conv_err["conv3x3"], "ms": cm_ms["conv3x3"][0],
+         "plain_ms": cm_ms["conv3x3"][1]},
+        {"name": "dense_block_tiled", "route": "cuda", "source": f"{src}/dense_block.cu",
+         "replaces": f"{ref}/dense_block_cm.py:111", "launches": photo["launches"]["dense_block"],
+         "max_abs_err": tiled_err, "ms": cm_ms["dense_block_tiled"][0],
+         "plain_ms": cm_ms["dense_block_tiled"][1]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

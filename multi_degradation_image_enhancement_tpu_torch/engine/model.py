@@ -1,8 +1,8 @@
-"""The restoration engine, train path (counterpart of
+"""The restoration engine (counterpart of
 ``multi_degradation_image_enhancement_tpu/engine/model.py``).
 
 Same constructor contract (``Model(network, config=…, dataloader=…,
-logger=…)``) and config keys as the JAX engine:
+logger=…)``) and config keys as the JAX engine.  Train phase:
 
 * Adam at ``train.lr``; best checkpoint by epoch train loss to
   ``train.model_path/model_name``, copied to the run dir as ``best.pt``;
@@ -17,11 +17,22 @@ logger=…)``) and config keys as the JAX engine:
   checkpoint's BatchNorm statistics (``model.py:646``);
 * the logger's epoch rows keep the JAX schema.
 
-The device is explicit: ``train.device`` ``"cuda"`` or ``"tpu"`` means CUDA
-and raises without a card; ``"cpu"`` runs on the CPU.  The test phase is not
-ported yet (ROADMAP.md, queue 1), nor the train keys no shipped config sets:
-``resume``, ``scan_chunk``, ``mesh``, ``remat``, ``lr_schedule``,
-``grad_clip``, ``torch_init`` and ``logging.profiler``; each raises if set.
+Test phase (``model.py:464-534,756-928``): a strict load of
+``test.model_path/model_name``; the fused forward of
+``models.cdan_fast.build_serving_apply`` (``test.fused_kernels`` /
+``model.fused_kernels``: ``"auto"`` takes it on CUDA and the module on the
+CPU, ``true`` forces it, ``false`` takes the module) in the precision of
+``train.precision``; per batch the loss and metrics pipelines with
+mask-aware means (the PRE stage), averaged over batches; the outputs written
+as images by a pool of writer threads (``save_outputs``); ``test`` rows and
+the summary through the logger.  ``post_processing.enabled`` raises (not
+ported, ROADMAP.md queue 1), so the POST stage never runs.
+
+The device is explicit: ``<phase>.device`` ``"cuda"`` or ``"tpu"`` means
+CUDA and raises without a card; ``"cpu"`` runs on the CPU.  The train keys no
+shipped config sets are not ported: ``resume``, ``scan_chunk``, ``mesh``,
+``remat``, ``lr_schedule``, ``grad_clip``, ``torch_init`` and
+``logging.profiler``; each raises if set.
 """
 
 from __future__ import annotations
@@ -29,14 +40,19 @@ from __future__ import annotations
 import os
 import shutil
 import time
-from typing import Dict, List
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, List, Optional
 
 import torch
 
 from multi_degradation_image_enhancement_tpu_torch.data.loader import batch_seed
 from multi_degradation_image_enhancement_tpu_torch.engine import checkpoint as ckpt
 from multi_degradation_image_enhancement_tpu_torch.engine.state import TrainState
+from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
+from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_serving_apply
 from multi_degradation_image_enhancement_tpu_torch.ops.losses import build_loss_pipeline
+from multi_degradation_image_enhancement_tpu_torch.ops.metrics import build_metrics_pipeline
+from multi_degradation_image_enhancement_tpu_torch.ops.perceptual import weight_status
 
 UNPORTED_TRAIN_KEYS = ("resume", "scan_chunk", "mesh", "remat", "lr_schedule", "grad_clip",
                        "torch_init")
@@ -89,42 +105,66 @@ def _mean_of_dicts(dicts: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
 
 
 class Model:
-    """The restoration engine's train path (reference ``models/model.py:25-363``)."""
+    """The restoration engine (reference ``models/model.py:25-363``)."""
 
     def __init__(self, network, config, dataloader, logger=None):
         self.config = config
         self.phase = config["phase"]
-        if self.phase != "train":
-            raise NotImplementedError("the test phase is not ported to PyTorch yet "
-                                      "(ROADMAP.md, queue 1)")
+        if self.phase not in ("train", "test"):
+            raise ValueError(f"phase must be 'train' or 'test', got {self.phase!r}")
+        phase_cfg = config[self.phase] or {}
         train_cfg = config["train"] or {}
-        for key in UNPORTED_TRAIN_KEYS:
-            if train_cfg.get(key):
-                raise NotImplementedError(f"train.{key} is not ported to PyTorch yet (ROADMAP.md)")
+        if self.phase == "train":
+            for key in UNPORTED_TRAIN_KEYS:
+                if train_cfg.get(key):
+                    raise NotImplementedError(f"train.{key} is not ported to PyTorch yet (ROADMAP.md)")
         log_cfg = config.get("logging", {}) or {}
         if (log_cfg.get("profiler", {}) or {}).get("enabled"):
             raise NotImplementedError("logging.profiler is not ported to PyTorch yet (ROADMAP.md)")
+        self.postproc_cfg = config.get("post_processing", {}) or {}
+        if self.phase == "test" and self.postproc_cfg.get("enabled"):
+            raise NotImplementedError("post_processing.enabled is not ported to PyTorch yet "
+                                      "(ROADMAP.md, queue 1 item 4)")
 
-        self.device = resolve_device(train_cfg.get("device") or "cpu")
+        self.device = resolve_device(phase_cfg.get("device") or "cpu")
         self.epoch = int(train_cfg["n_epoch"])
         self.lr = float(train_cfg["lr"])
-        self.model_path = train_cfg["model_path"]
-        self.model_name = train_cfg["model_name"]
+        self.model_path = phase_cfg["model_path"]
+        self.model_name = phase_cfg["model_name"]
         self.seed = int(train_cfg.get("seed", 42) or 42)
+        # the eval precision follows train.precision too (model.py:198-204)
         self.precision = train_cfg.get("precision") or (
             "bf16" if self.device.type == "cuda" else "fp32")
         self.dataloader = dataloader
         self.logger = logger
 
-        with torch.random.fork_rng(devices=[]):  # weights from train.seed alone
-            torch.manual_seed(self.seed)
-            for m in network.modules():
-                if hasattr(m, "reset_parameters"):
-                    m.reset_parameters()
-        network.fused_dense = bool(train_cfg.get("fused_dense"))
-        self.state = TrainState.create(network.to(self.device), self.lr)
         self.loss_pipe = build_loss_pipeline(config.get("loss", {}) or {})
-        self._train_step = make_train_step(self.loss_pipe, self.precision)
+        self.metrics_pipe = build_metrics_pipeline(config.get("metrics", {}) or {}, self.device)
+        test_cfg = config.get("test", {}) or {}
+        paired = ((test_cfg.get("dataset", {}) or {}).get("is_paired"))
+        self.is_dataset_paired = True if paired is None else bool(paired)
+        self.save_cfg = dict(config.get("save_outputs", {}) or {})
+        self.save_cfg.setdefault("output_dir", test_cfg.get("output_images_path") or "outputs/")
+        self.save_cfg.setdefault("save_raw", False)
+        self.save_cfg.setdefault("save_postprocessed", True)
+        self.save_cfg.setdefault("raw_prefix", "raw_")
+        self.save_cfg.setdefault("post_prefix", self.save_cfg.get("prefix", "output_"))
+        eval_cfg = config.get("evaluation", {}) or {}
+        self.eval_on_raw = True if eval_cfg.get("raw") is None else bool(eval_cfg["raw"])
+        self._writer_pool: Optional[ThreadPoolExecutor] = None
+        self._writer_futures: List[Future] = []
+
+        self.state: Optional[TrainState] = None
+        self._eval_network = network
+        if self.phase == "train":
+            with torch.random.fork_rng(devices=[]):  # weights from train.seed alone
+                torch.manual_seed(self.seed)
+                for m in network.modules():
+                    if hasattr(m, "reset_parameters"):
+                        m.reset_parameters()
+            network.fused_dense = bool(train_cfg.get("fused_dense"))
+            self.state = TrainState.create(network.to(self.device), self.lr)
+            self._train_step = make_train_step(self.loss_pipe, self.precision)
 
         self.logging_enabled = bool(log_cfg.get("enabled", False))
         self.train_log_every = int((log_cfg.get("train", {}) or {}).get("log_every_n_batches", 0) or 0)
@@ -133,9 +173,15 @@ class Model:
         self.ckpt_every = int(ckpt_cfg.get("every_n_epochs", 10) or 10)
         self.best_loss = float("inf")
 
+        # Results say which feature networks run on pretrained weights and
+        # which on seeded random frozen ones (model.py:305-313).
+        status = weight_status()
+        if status and self._log():
+            self.logger.set_summary({"pretrained_weights": status})
+
     @property
     def network(self):
-        return self.state.model
+        return self.state.model if self.state is not None else self._eval_network
 
     def _log(self) -> bool:
         return self.logging_enabled and self.logger is not None
@@ -231,5 +277,145 @@ class Model:
         if run_dir and os.path.isfile(self.checkpoint_path()):
             shutil.copyfile(self.checkpoint_path(), os.path.join(run_dir, "best.pt"))
 
+
+    # ------------------------------------------------------------------ test
+
     def test(self):
-        raise NotImplementedError("the test phase is not ported to PyTorch yet (ROADMAP.md, queue 1)")
+        self.test_step()
+
+    def _load_for_eval(self) -> torch.nn.Module:
+        """The checkpoint at ``model_path/model_name``, loaded strictly into
+        the fresh network, in eval mode on the device."""
+        return ckpt.load_weights(self.checkpoint_path(), self._eval_network).to(self.device).eval()
+
+    def _fused_eval_forward(self, model: torch.nn.Module):
+        """The fused forward (``build_serving_apply``), or None for the module.
+
+        ``test.fused_kernels`` or else ``model.fused_kernels``: ``false`` →
+        the module; ``"auto"`` (the default) → the fused forward on CUDA and
+        the module on the CPU; anything else, ``true`` included, forces the
+        fused forward (the kernels' plain versions on the CPU).  A network
+        that is not a CDAN keeps the module unless ``true`` asks for more."""
+        flag = (self.config.get("test", {}) or {}).get("fused_kernels")
+        if flag is None:
+            flag = (self.config.get("model", {}) or {}).get("fused_kernels", "auto")
+        if flag is False or (flag == "auto" and self.device.type == "cpu"):
+            return None
+        if not isinstance(model, CDAN):
+            if flag is True:
+                raise RuntimeError(f"fused_kernels=true but the network is a "
+                                   f"{type(model).__name__}, not a CDAN")
+            return None
+        dtype = torch.bfloat16 if self.precision == "bf16" else torch.float32
+        return build_serving_apply(model, dtype, self.device)
+
+    def _build_eval_step(self, model: torch.nn.Module):
+        """``step(inputs, targets=None, mask=None) -> {"raw", "pre_loss",
+        "pre_metric"}``: the forward, then with targets the loss and metric
+        pipelines on the raw outputs (mask-aware means, device scalars)."""
+        fused = self._fused_eval_forward(model)
+        if fused is not None:
+            print("[ENGINE] fused inference kernels active (CUDA DenseBlocks)")
+        bf16 = self.precision == "bf16"
+
+        @torch.inference_mode()
+        def step(inputs, targets=None, mask=None) -> Dict[str, object]:
+            if fused is not None:
+                outputs = fused(inputs)
+            else:
+                with torch.autocast(inputs.device.type, dtype=torch.bfloat16, enabled=bf16):
+                    outputs = model(inputs)
+            result: Dict[str, object] = {"raw": outputs}
+            if targets is not None and self.eval_on_raw:
+                result["pre_loss"] = self.loss_pipe(outputs, targets=targets, inputs=inputs,
+                                                    mask=mask)
+                result["pre_metric"] = self.metrics_pipe(outputs, targets=targets, inputs=inputs,
+                                                         mask=mask)
+            return result
+
+        return step
+
+    def _save_batch_outputs(self, outputs: torch.Tensor, start_index: int, prefix: str) -> None:
+        """Queue one batch of outputs ([0, 1], NHWC) for encoding on the
+        writer pool, as ``<prefix><index>.<format>`` from index
+        ``start_index + 1``; only the copy to the host happens here.  PNG is
+        lossless, so the files hold the same pixels as the JAX engine's."""
+        from PIL import Image
+
+        out_dir = self.save_cfg.get("output_dir", "outputs/")
+        os.makedirs(out_dir, exist_ok=True)
+        resize_hw = self.save_cfg.get("resize_hw")
+        fmt = self.save_cfg.get("format", "png")
+        frames = (outputs.float() * 255.0).clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+        def encode(frame, path):
+            img = Image.fromarray(frame)
+            if resize_hw is not None:
+                img = img.resize((resize_hw[1], resize_hw[0]), Image.BILINEAR)
+            img.save(path)
+
+        if self._writer_pool is None:
+            self._writer_pool = ThreadPoolExecutor(max_workers=4)
+        for i, frame in enumerate(frames):
+            path = os.path.join(out_dir, f"{prefix}{start_index + i + 1}.{fmt}")
+            self._writer_futures.append(self._writer_pool.submit(encode, frame, path))
+
+    def _drain_writers(self) -> None:
+        """Wait for every queued image; the first writer failure raises."""
+        futures, self._writer_futures = self._writer_futures, []
+        for f in futures:
+            f.result()
+
+    def test_step(self):
+        """Score the checkpoint over the test loader (``model.py:817-928``):
+        paired data gets the PRE losses and metrics averaged over batches;
+        outputs are saved up to ``save_outputs.max_images``, where the loop
+        also stops."""
+        eval_fn = self._build_eval_step(self._load_for_eval())
+        paired = self.is_dataset_paired
+        save = bool(self.save_cfg.get("enabled", True))
+        max_save = self.save_cfg.get("max_images")
+        losses: List[Dict[str, torch.Tensor]] = []
+        metrics: List[Dict[str, torch.Tensor]] = []
+        out_counter = n_batches = 0
+        try:
+            for inputs, targets, mask in self.dataloader:
+                result = eval_fn(inputs, targets if paired else None, mask)
+                n_valid = int(mask.sum().item())
+                if "pre_loss" in result:
+                    losses.append(result["pre_loss"])
+                    metrics.append(result["pre_metric"])
+                if save and (max_save is None or out_counter < max_save):
+                    # no post-processing: the "post" outputs are the raw ones
+                    for kind, prefix_key in (("save_raw", "raw_prefix"),
+                                             ("save_postprocessed", "post_prefix")):
+                        if self.save_cfg.get(kind):
+                            self._save_batch_outputs(result["raw"][:n_valid], out_counter,
+                                                     self.save_cfg[prefix_key])
+                out_counter += n_valid
+                n_batches += 1
+                if max_save is not None and out_counter >= max_save:
+                    break
+            self._drain_writers()
+        finally:
+            if self._writer_pool is not None:
+                self._writer_pool.shutdown(wait=True)
+                self._writer_pool = None
+
+        loss_avg, metric_avg = _mean_of_dicts(losses), _mean_of_dicts(metrics)
+        if paired and self.eval_on_raw:
+            print("[PRE]  Losses -> " + ", ".join(f"{k}: {v:.4f}" for k, v in loss_avg.items()))
+            if metric_avg:
+                print("[PRE]  Metrics -> " + ", ".join(f"{k}: {v:.4f}" for k, v in metric_avg.items()))
+        if self._log():
+            if not paired:
+                self.logger.log_test({"type": "test", "stage": "unpaired", "batches": n_batches})
+            elif self.eval_on_raw:
+                row = {"type": "test", "stage": "pre", "batches": n_batches}
+                row.update({f"loss_{k}": v for k, v in loss_avg.items()})
+                row.update({f"metric_{k}": v for k, v in metric_avg.items()})
+                self.logger.log_test(row)
+            self.logger.set_summary({"best_train_loss": float(self.best_loss),
+                                     "test_batches": int(n_batches),
+                                     "post_processing_enabled": False})
+        return loss_avg, metric_avg

@@ -1,35 +1,57 @@
-"""Fused CDAN inference forward (serving path).
+"""Fused CDAN inference forwards (serving and eval).
 
-Counterpart of ``multi_degradation_image_enhancement_tpu/models/cdan_fast.py``
-``build_fast_apply`` (:435) and ``build_serving_apply`` (:406).  From an eval
-``CDAN`` it builds a forward that:
+Counterpart of ``multi_degradation_image_enhancement_tpu/models/cdan_fast.py``:
+the per-DenseBlock forward ``build_fast_apply`` (:435), the all-channel-major
+forward ``build_fast_apply_cm`` (:268), and ``build_serving_apply`` (:406),
+which picks one of them per image size.  From an eval ``CDAN`` both forwards:
 
-* folds every conv + BatchNorm pair into one conv (the decoder's
+* fold every conv + BatchNorm pair into one conv (the decoder's
   ``ConvTranspose2d(k3, s1, p1)`` becomes the equivalent 3×3 conv first);
-* runs the four DenseBlocks through the DenseBlock kernel
-  (``ops.cuda.dense_block``: CUDA on the card, the plain version on the CPU);
-* keeps CBAM and the bilinear upsample as the plain modules;
-* runs the folded 3×3 convs as ``F.conv2d`` (XLA's convs in the JAX package).
+* run the four DenseBlocks through the DenseBlock kernel
+  (``ops.cuda.dense_block``: CUDA on the card, the plain version on the CPU).
 
-Activations are NCHW in ``dtype`` inside; the forward takes and returns NHWC,
-[0, 1] in, f32 out.  Numerical contract: equals ``CDAN`` in eval mode to bf16
-tolerance at ``dtype=bfloat16`` (the DenseBlock kernel holds features in bf16)
-and to f32 tolerance at ``dtype=float32`` on the CPU.
+They differ where the JAX package's do.  :func:`build_fast_apply` runs the
+folded convs as ``F.conv2d`` (XLA's convs in the JAX package), conv1's pool
+as ``F.max_pool2d`` and CBAM as the plain modules.
+:func:`build_fast_apply_cm` runs conv1 + BN + ReLU + 2×2 pool as one kernel
+(``ops.cuda.conv_cm.conv3x3_pool``, TPU kernel #9), the other convs as
+``F.conv2d`` or as the conv kernel (``conv3x3``, #8) per
+:data:`_CM_CONV_IMPL`, and CBAM with its spatial BatchNorm folded
+(:func:`_cbam_cm`).  The port's channel-major layout is plain NCHW, so both
+keep NCHW inside.  The JAX package's third DenseBlock route, the row-tiled
+``_run_cm`` (#3) for images whose whole-image kernel does not fit VMEM, has
+no branch here: the CUDA DenseBlock covers whole images at every size.
 
-Inference only: the forward runs under ``torch.inference_mode()`` on frozen
-copies of the weights, and raises when called with grad enabled on an input
+Activations are in ``dtype`` inside; the forwards take and return NHWC,
+[0, 1] in, f32 out.  Numerical contract: equal to ``CDAN`` in eval mode to
+bf16 tolerance at ``dtype=bfloat16`` (the kernels hold features and operands
+in bf16) and to f32 tolerance at ``dtype=float32`` on the CPU with the
+per-block forward (the CM forward's conv1 kernel takes bf16 operands at any
+dtype, as the TPU kernel does).
+
+Inference only: the forwards run under ``torch.inference_mode()`` on frozen
+copies of the weights, and raise when called with grad enabled on an input
 that requires grad (training goes through ``models.cdan.CDAN``).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, Tuple
+import json
+import os
+from pathlib import Path
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN, _bilinear_x2
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
+    conv3x3,
+    conv3x3_pool,
+    pack_conv,
+    pack_conv_pool,
+)
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
     dense_block,
     fold_bn,
@@ -63,6 +85,16 @@ def _fold_all(model: CDAN) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
     return folded
 
 
+def _pack_dense_blocks(model: CDAN, device) -> Dict[str, Any]:
+    enc, dec = model.encoder, model.decoder
+    return {
+        "dense1": pack_dense_block(enc.dense1, device),
+        "dense2": pack_dense_block(enc.dense2, device),
+        "dense3": pack_dense_block(enc.dense3, device),
+        "final_dense": pack_dense_block(dec.final_dense, device),
+    }
+
+
 def resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -86,13 +118,8 @@ def build_fast_apply(
         name: (w.to(device=device, dtype=dtype).contiguous(), b.to(device=device, dtype=dtype))
         for name, (w, b) in _fold_all(model).items()
     }
-    enc, dec = model.encoder, model.decoder
-    packs = {
-        "dense1": pack_dense_block(enc.dense1, device),
-        "dense2": pack_dense_block(enc.dense2, device),
-        "dense3": pack_dense_block(enc.dense3, device),
-        "final_dense": pack_dense_block(dec.final_dense, device),
-    }
+    dec = model.decoder
+    packs = _pack_dense_blocks(model, device)
     cbams = {
         name: copy.deepcopy(mod).to(device=device, dtype=dtype).eval().requires_grad_(False)
         for name, mod in (("bottleneck", model.bottleneck), ("cbam1", dec.cbam1),
@@ -137,10 +164,191 @@ def build_fast_apply(
     return apply_fn
 
 
-def build_serving_apply(
+# ---------------------------------------------------- all-channel-major forward
+
+# Per-layer conv implementation of the CM forward, the JAX package's table
+# (``cdan_fast.py:187-195``) with its keys and all-"xla" defaults: "xla" is
+# ``F.conv2d`` on the folded weights, as the per-block forward runs it;
+# "kernel" is the conv kernel (``ops.cuda.conv_cm.conv3x3``, TPU kernel #8).
+# Read when a forward is built; patch it to A/B the kernel.
+_CM_CONV_IMPL: Dict[str, str] = {
+    "conv2": "xla",
+    "conv3": "xla",
+    "conv4": "xla",
+    "de1": "xla",
+    "de2": "xla",
+    "de3": "xla",
+    "de4": "xla",
+}
+
+
+def pack_cbam_cm(cbam, device=None, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """One CBAM's weights for :func:`_cbam_cm`: the channel gate's MLP, and
+    the spatial gate's 7×7 conv (no bias) with its inference BatchNorm folded
+    into the kernel and one scalar bias (``cdan_fast.py:105-124``)."""
+    fc1, fc2 = cbam.ChannelGate.mlp[1], cbam.ChannelGate.mlp[3]
+    sp = cbam.SpatialGate.spatial
+    a, b = fold_bn(sp.bn.weight, sp.bn.bias, sp.bn.running_mean, sp.bn.running_var, sp.bn.eps)
+
+    def cast(t):
+        return t.detach().to(device=device, dtype=dtype).contiguous()
+
+    return {"w1": cast(fc1.weight), "b1": cast(fc1.bias), "w2": cast(fc2.weight),
+            "b2": cast(fc2.bias), "k7": cast(sp.conv.weight * a[:, None, None, None]),
+            "bsp": cast(b)}
+
+
+def _cbam_cm(x: torch.Tensor, pack: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """CBAM (inference) on NCHW ``x`` from :func:`pack_cbam_cm`: the channel
+    gate on the avg- and max-pooled vectors, then the spatial gate on the
+    ``[max, mean]`` compress map (``cdan_fast.py:127-159``)."""
+
+    def mlp(v):
+        return F.linear(torch.relu(F.linear(v, pack["w1"], pack["b1"])), pack["w2"], pack["b2"])
+
+    x = x * torch.sigmoid(mlp(x.mean(dim=(2, 3))) + mlp(x.amax(dim=(2, 3))))[:, :, None, None]
+    comp = torch.cat([x.amax(dim=1, keepdim=True), x.mean(dim=1, keepdim=True)], dim=1)
+    return x * torch.sigmoid(F.conv2d(comp, pack["k7"], pack["bsp"], padding=3))
+
+
+def _maxpool2x2_cm(x: torch.Tensor) -> torch.Tensor:
+    """2×2 max-pool (``cdan_fast.py:252``)."""
+    return F.max_pool2d(x, 2)
+
+
+# ×2 half-pixel bilinear upsample (``cdan_fast.py:260``), the module's own.
+_upsample_x2_cm = _bilinear_x2
+
+
+@torch.no_grad()
+def build_fast_apply_cm(
     model: CDAN, dtype=torch.bfloat16, device="cuda"
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The serving forward: the per-DenseBlock fused path.  (The JAX
-    package's all-channel-major alternative is off in its shipped tuning and
-    is not ported.)"""
-    return build_fast_apply(model, dtype, device)
+    """Build the all-channel-major inference forward from an eval ``CDAN``
+    (``cdan_fast.py:268-377``): conv1 + BN + ReLU + pool through
+    ``conv3x3_pool``, the other convs per :data:`_CM_CONV_IMPL` (read now),
+    DenseBlocks through the DenseBlock kernel, folded CBAMs.  Same contract
+    as :func:`build_fast_apply`; H a multiple of 8 and W of 16
+    (:func:`cm_forward_supported`)."""
+    device = resolve_device(device)
+    impl = dict(_CM_CONV_IMPL)
+    bad = {name: v for name, v in impl.items() if v not in ("xla", "kernel")}
+    if bad:
+        raise ValueError(f"_CM_CONV_IMPL values must be 'xla' or 'kernel', got {bad}")
+    folded = _fold_all(model)
+    conv1 = pack_conv_pool(*folded["conv1"], device=device)
+    kernel_packs = {name: pack_conv(*folded[name], device=device)
+                    for name, v in impl.items() if v == "kernel"}
+    xla_weights = {name: (folded[name][0].to(device=device, dtype=dtype).contiguous(),
+                          folded[name][1].to(device=device, dtype=dtype))
+                   for name, v in impl.items() if v == "xla"}
+    packs = _pack_dense_blocks(model, device)
+    dec = model.decoder
+    cbams = {name: pack_cbam_cm(mod, device, dtype)
+             for name, mod in (("bottleneck", model.bottleneck), ("cbam1", dec.cbam1),
+                               ("cbam2", dec.cbam2), ("cbam3", dec.cbam3))}
+    frozen = [conv1.w_bf16, conv1.bias]
+    frozen += [t for p in kernel_packs.values() for t in (p.w_bf16, p.bias)]
+    frozen += [t for wb in xla_weights.values() for t in wb]
+    frozen += [t for p in cbams.values() for t in p.values()]
+
+    def conv(x: torch.Tensor, name: str) -> torch.Tensor:
+        if name in kernel_packs:
+            return conv3x3(x, kernel_packs[name])
+        w, b = xla_weights[name]
+        return torch.relu(F.conv2d(x, w, b, padding=1))
+
+    def apply_fn(x_nhwc: torch.Tensor) -> torch.Tensor:
+        require_no_grad("the serving forward", [x_nhwc, *frozen])
+        with torch.inference_mode():
+            return forward(x_nhwc)
+
+    def forward(x_nhwc: torch.Tensor) -> torch.Tensor:
+        x = x_nhwc.to(device=device, dtype=dtype).permute(0, 3, 1, 2).contiguous()
+
+        out = conv3x3_pool(x, conv1)  # conv1 + BN + ReLU + 2×2 pool, one pass
+        d1 = dense_block(out, packs["dense1"])
+        skip0 = out
+        out = _maxpool2x2_cm(conv(out, "conv2"))
+        d2 = dense_block(out, packs["dense2"])
+        skip1 = out
+        out = _maxpool2x2_cm(conv(out, "conv3"))
+        d3 = dense_block(out, packs["dense3"])
+        skip2 = out
+        out = _cbam_cm(conv(out, "conv4"), cbams["bottleneck"])
+
+        out = _cbam_cm(conv(out, "de1") + skip2, cbams["cbam1"])
+        out = out * d3
+        out = _cbam_cm(_upsample_x2_cm(conv(out, "de2")) + skip1, cbams["cbam2"])
+        out = out * d2
+        out = _cbam_cm(_upsample_x2_cm(conv(out, "de3")) + skip0, cbams["cbam3"])
+        out = out * d1
+        # de4 has 3 outputs; the TPU kernel pads them to 16 and slices back
+        # (:368), the CUDA kernel writes 3.  de4 keeps its ReLU.
+        out = _upsample_x2_cm(conv(out, "de4")) + x  # global residual
+        out = torch.sigmoid(dense_block(out, packs["final_dense"]))
+        return out.permute(0, 2, 3, 1).float()
+
+    return apply_fn
+
+
+def cm_forward_supported(h: int, w: int) -> bool:
+    """Whether the CM forward takes an H×W image (``cdan_fast.py:380-403``).
+
+    The arithmetic conditions stay: three 2× pools need H and W multiples of
+    8, and the JAX package's conv1 kernel needs W a multiple of 16.  Its VMEM
+    predicates (``conv_pool_supported``, ``conv_supported``,
+    ``cm2_supported``) have no counterpart on the card, so the port takes the
+    CM forward at sizes where the JAX package does not (256×384, for one).
+    """
+    return h % 8 == 0 and w % 16 == 0
+
+
+TUNING_ENV = "MDIE_SERVING_TUNING"
+_TUNING_PATH = (Path(__file__).resolve().parents[2] / "multi_degradation_image_enhancement_tpu"
+                / "config" / "serving_tuning.json")
+
+
+def serving_prefer_cm() -> bool:
+    """``prefer_cm`` of the JAX package's ``config/serving_tuning.json``, read
+    as a file, or of the file ``$MDIE_SERVING_TUNING`` names, as
+    ``_load_serving_tuning`` (``cdan_fast.py:215-249``) reads it; false when
+    the file is missing.
+
+    The file's ``db_k_stack_max_ci`` and ``db_nhwc_io`` pick TPU layouts of
+    the DenseBlock kernel (dx taps stacked on the contraction axis, NHWC
+    blocks transposed in VMEM) that move no rounding point, so they are
+    ignored.  ``db_bf16_act: true`` (the affine and ReLU in bf16) is not
+    ported and raises.
+    """
+    path = os.environ.get(TUNING_ENV) or str(_TUNING_PATH)
+    if not os.path.isfile(path):
+        return False
+    with open(path, encoding="utf-8") as f:
+        cfg = json.load(f)
+    if cfg.get("db_bf16_act"):
+        raise NotImplementedError(f"{path}: db_bf16_act (bf16 DenseBlock activations) is not "
+                                  "ported to PyTorch")
+    return bool(cfg.get("prefer_cm", False))
+
+
+def build_serving_apply(
+    model: CDAN, dtype=torch.bfloat16, device="cuda", prefer_cm=None
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The serving forward (``cdan_fast.py:406-425``): with ``prefer_cm`` the
+    CM forward for every image size it takes (:func:`cm_forward_supported`,
+    checked per call) and the per-block forward for the rest; without it the
+    per-block forward.  ``prefer_cm=None`` reads it from the serving tuning
+    file (:func:`serving_prefer_cm`; false as shipped)."""
+    if prefer_cm is None:
+        prefer_cm = serving_prefer_cm()
+    per_block = build_fast_apply(model, dtype, device)
+    if not prefer_cm:
+        return per_block
+    cm = build_fast_apply_cm(model, dtype, device)
+
+    def apply_fn(x_nhwc: torch.Tensor) -> torch.Tensor:
+        _, h, w, _ = x_nhwc.shape
+        return cm(x_nhwc) if cm_forward_supported(h, w) else per_block(x_nhwc)
+
+    return apply_fn

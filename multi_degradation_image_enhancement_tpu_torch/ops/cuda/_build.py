@@ -137,6 +137,9 @@ def _declare(lib, ctypes) -> None:
         "mdie_growth_fwd": [p, i, i, i, i, p, p, p, p, p, p],
         "mdie_growth_bwd": [p, p, i, i, i, i, p, p, p, p, p, p, p, p, p],
         "mdie_growth_bwd_scratch": [i, i, i, i],  # returns a float count
+        # conv_cm.cu
+        "mdie_conv3x3": [p, i, i, i, i, i, p, p, i, i, p, p],
+        "mdie_conv3x3_pool": [p, i, i, i, i, i, p, p, i, p, p],
     }
     restypes = {"mdie_growth_bwd_scratch": i64}
     for name, argtypes in signatures.items():

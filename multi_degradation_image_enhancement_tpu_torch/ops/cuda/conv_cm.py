@@ -1,0 +1,142 @@
+"""CDAN's single 3×3 convolutions: CUDA kernels (``csrc/conv_cm.cu``), the
+BN-folding pack, and the plain PyTorch versions.
+
+Counterpart of ``multi_degradation_image_enhancement_tpu/ops/pallas/
+conv_cm.py`` (``conv3x3_cm``, ``pack_conv``) and ``ops/pallas/conv_pool_cm.py``
+(``conv3x3_pool_cm``, ``pack_conv_pool``).  Both take and return plain NCHW
+(the port's channel-major layout), with no channel padding:
+
+* :func:`conv3x3`: ``[B, c_in, H, W]`` → ``[B, c_out, H, W]``, 3×3 SAME conv
+  + folded-BN bias, ReLU optional;
+* :func:`conv3x3_pool`: ``[B, c_in, H, W]`` → ``[B, c_out, H/2, W/2]``, the
+  same conv + bias + ReLU, then the 2×2 max-pool, in one pass (H, W even).
+
+Rounding points, those of the TPU kernels: the input and the weights are
+bf16 operands, products accumulate in f32, the f32 bias, ReLU and max run in
+f32, and the result is rounded once to x's dtype (f32 or bf16).
+
+Each wrapper takes the plain version only for a tensor on the CPU.  For a
+CUDA tensor it launches its kernel or raises; ``conv3x3.launches`` and
+``conv3x3_pool.launches`` count one per launch.  Inference only: both raise
+when grad is enabled and x or the pack requires grad.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+    fold_bn,
+    require_no_grad,
+)
+
+
+@dataclass
+class ConvPack:
+    """A 3×3 conv with its BatchNorm folded in, as the kernels read it:
+    ``w_bf16`` ``[c_out, c_in, 3, 3]`` (OIHW, bf16) and ``bias`` f32 ``[c_out]``."""
+
+    w_bf16: torch.Tensor
+    bias: torch.Tensor
+
+    @property
+    def c_in(self) -> int:
+        return self.w_bf16.shape[1]
+
+    @property
+    def c_out(self) -> int:
+        return self.w_bf16.shape[0]
+
+
+@torch.no_grad()
+def pack_conv(weight: torch.Tensor, bias: torch.Tensor, bn=None, device=None) -> ConvPack:
+    """Fold an inference BatchNorm (``bn``, optional: pass folded weights
+    without it) into an OIHW 3×3 conv and cast to what the kernels read."""
+    w, b = weight.detach().float(), bias.detach().float()
+    if bn is not None:
+        a, shift = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+        w, b = w * a[:, None, None, None].float(), b * a.float() + shift.float()
+    return ConvPack(w_bf16=w.to(device=device, dtype=torch.bfloat16).contiguous(),
+                    bias=b.to(device=device, dtype=torch.float32).contiguous())
+
+
+# The TPU kernel's pack reorders the taps for its column-polyphase stack
+# (``conv_pool_cm.py:74-97``); the CUDA kernel reads the plain OIHW pack.
+pack_conv_pool = pack_conv
+
+
+def _conv_plain_f32(x: torch.Tensor, pack: ConvPack, relu: bool) -> torch.Tensor:
+    y = F.conv2d(x.to(torch.bfloat16).float(), pack.w_bf16.float(), pack.bias, padding=1)
+    return torch.relu(y) if relu else y
+
+
+def conv3x3_plain(x: torch.Tensor, pack: ConvPack, relu: bool = True) -> torch.Tensor:
+    """Plain version: ``F.conv2d`` in f32 on bf16-rounded operands, bias,
+    optional ReLU, one rounding to x's dtype."""
+    return _conv_plain_f32(x, pack, relu).to(x.dtype)
+
+
+def conv3x3_pool_plain(x: torch.Tensor, pack: ConvPack) -> torch.Tensor:
+    """Plain version: as :func:`conv3x3_plain` with ReLU, then
+    ``F.max_pool2d`` in f32, one rounding to x's dtype."""
+    return F.max_pool2d(_conv_plain_f32(x, pack, True), 2).to(x.dtype)
+
+
+def _check(x: torch.Tensor, pack: ConvPack, name: str) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or x.shape[1] != pack.c_in:
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not [B, {pack.c_in}, H, W]")
+    _build.require(x, "x", x.dtype)
+    _build.require(pack.w_bf16, "w", torch.bfloat16, (pack.c_out, pack.c_in, 3, 3))
+    _build.require(pack.bias, "bias", torch.float32, (pack.c_out,))
+
+
+def conv3x3(x: torch.Tensor, pack: ConvPack, relu: bool = True) -> torch.Tensor:
+    """3×3 SAME conv + bias (+ ReLU), NCHW ``[B, c_in, H, W]`` → ``[B, c_out,
+    H, W]`` in x's dtype.  CPU: the plain version; CUDA: one kernel launch."""
+    require_no_grad("conv3x3", [x, pack.w_bf16, pack.bias])
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, pack, relu)
+    _check(x, pack, "conv3x3")
+    bsz, c_in, h, w = x.shape
+    n_og = -(-pack.c_out // (4 if pack.c_out <= 4 else 32))  # the kernel's gridDim.z is batch x groups
+    _build.require_batch(bsz * n_og, "conv3x3")
+    out = torch.empty((bsz, pack.c_out, h, w), dtype=x.dtype, device=x.device)
+    err = _build.load().mdie_conv3x3(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), bsz, c_in, h, w, pack.w_bf16.data_ptr(),
+        pack.bias.data_ptr(), pack.c_out, int(relu), out.data_ptr(), _build.stream_of(x),
+    )
+    _build.check(err, "conv3x3")
+    conv3x3.launches += 1
+    return out
+
+
+def conv3x3_pool(x: torch.Tensor, pack: ConvPack) -> torch.Tensor:
+    """3×3 SAME conv + bias + ReLU + 2×2 max-pool, NCHW ``[B, c_in, H, W]``
+    (H, W even) → ``[B, c_out, H/2, W/2]`` in x's dtype.  CPU: the plain
+    version; CUDA: one kernel launch."""
+    require_no_grad("conv3x3_pool", [x, pack.w_bf16, pack.bias])
+    if x.device.type == "cpu":
+        return conv3x3_pool_plain(x, pack)
+    _check(x, pack, "conv3x3_pool")
+    bsz, c_in, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"conv3x3_pool: H and W must be even, got {h}x{w}")
+    _build.require_batch(bsz * -(-pack.c_out // 16), "conv3x3_pool")
+    out = torch.empty((bsz, pack.c_out, h // 2, w // 2), dtype=x.dtype, device=x.device)
+    err = _build.load().mdie_conv3x3_pool(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), bsz, c_in, h, w, pack.w_bf16.data_ptr(),
+        pack.bias.data_ptr(), pack.c_out, out.data_ptr(), _build.stream_of(x),
+    )
+    _build.check(err, "conv3x3_pool")
+    conv3x3_pool.launches += 1
+    return out
+
+
+conv3x3.launches = 0
+conv3x3_pool.launches = 0

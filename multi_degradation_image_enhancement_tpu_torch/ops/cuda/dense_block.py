@@ -2,9 +2,11 @@
 the parameter pack, and the plain PyTorch version.
 
 Counterpart of ``multi_degradation_image_enhancement_tpu/ops/pallas/
-dense_block_cm.py`` (``_kernel2`` via ``_run_cm2``) and of ``fold_bn`` in
-``ops/pallas/dense_block.py``.  NCHW in and out: ``[B, c_in, H, W]`` →
-``[B, c_in, H, W]`` in x's dtype, with no channel padding.
+dense_block_cm.py`` (``_kernel2`` via ``_run_cm2``, and the row-tiled
+``_kernel`` via ``_run_cm``, whose NHWC entry is :func:`fused_dense_block_cm`)
+and of ``fold_bn`` in ``ops/pallas/dense_block.py``.  NCHW in and out:
+``[B, c_in, H, W]`` → ``[B, c_in, H, W]`` in x's dtype, with no channel
+padding.
 
 :func:`dense_block` takes the plain version only for a tensor on the CPU.  For
 a CUDA tensor it launches ``num_layers`` growth kernels and one transition
@@ -187,3 +189,20 @@ def dense_block(x: torch.Tensor, pack: DenseBlockPack) -> torch.Tensor:
 
 
 dense_block.launches = 0
+
+
+def fused_dense_block_cm(x_nhwc: torch.Tensor, block) -> torch.Tensor:
+    """Inference DenseBlock from a ``models.cdan.DenseBlock`` module's eval
+    statistics, NHWC ``[B, H, W, c_in]`` in and out.
+
+    Counterpart of ``dense_block_cm.py:773`` ``fused_dense_block_cm``, the
+    entry of the row-tiled TPU kernel (``_kernel``, ``_run_cm``).  Its row
+    tiles with 5-row halos exist only because VMEM is 128 MiB; the growth and
+    transition kernels here cover whole images at any size, so this is an
+    entry point of :func:`dense_block` (launches counted there), not a second
+    kernel.  ``_kernel`` rounds where ``_kernel2`` does, so the plain version
+    is the same.
+    """
+    pack = pack_dense_block(block, x_nhwc.device)
+    out = dense_block(x_nhwc.permute(0, 3, 1, 2).contiguous(), pack)
+    return out.permute(0, 2, 3, 1)

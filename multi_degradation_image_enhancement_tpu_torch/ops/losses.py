@@ -5,8 +5,8 @@ Weighted multi-term losses with per-term paired/unpaired filtering and a
 per-component report.  Terms: ``mse``, ``l1``, ``charbonnier`` (eps 1e-3),
 ``ssim`` (1 − SSIM), ``channel_mean``, ``gradient_l1`` (L1 on Sobel
 gradients, optionally on luma), and the optional ``worst_case`` weighting.
-``vgg_perceptual`` and ``lpips`` need ``ops/perceptual.py``, which is not
-ported yet (ROADMAP.md, queue 1): asking for them raises.  Images are NHWC.
+The ``vgg_perceptual`` and ``lpips`` terms are not ported yet (ROADMAP.md,
+queue 1 item 3): asking for them raises.  Images are NHWC.
 """
 
 from __future__ import annotations
@@ -167,7 +167,6 @@ def _make_term(name: str, args: Dict[str, Any]) -> Callable[..., torch.Tensor]:
 
     if name in ("vgg_perceptual", "lpips"):
         raise ValueError(
-            f"loss term {name!r} needs ops/perceptual.py, which is not ported to PyTorch yet "
-            "(ROADMAP.md, queue 1)"
+            f"loss term {name!r} is not ported to PyTorch yet (ROADMAP.md, queue 1 item 3)"
         )
     raise ValueError(f"Unknown loss term: {name}")

@@ -1,0 +1,172 @@
+"""LPIPS with the AlexNet backbone, and its frozen weights (counterpart of
+``multi_degradation_image_enhancement_tpu/ops/perceptual.py``).
+
+:class:`LPIPS` follows the JAX module (``perceptual.py:215-262``), itself
+torchmetrics' ``LearnedPerceptualImagePatchSimilarity`` with ``net_type
+"alex"`` as the reference feeds it: [0, 1] images used as they are, the
+shift/scale prep, the five ReLU taps of torchvision's ``alexnet().features``
+(:class:`AlexNetFeatures`), per tap the channel unit-normalisation (1e-10
+under the root), the squared difference weighted by ``|lin|`` 1×1 weights,
+the spatial mean, and the sum over taps: per-sample distances ``[B]``.
+Images are NHWC, as in the JAX package; the backbone runs NCHW.
+
+Weights: :func:`init_frozen_params` loads ``$MDIE_WEIGHTS_DIR/<npz>``,
+whose keys are the JAX package's ``/``-joined Flax paths (``net/conv_0/kernel``
+HWIO, ``net/conv_0/bias``, ``lin_0`` ``[C, 1]``), mapped to torch layouts;
+without the file it keeps seeded, frozen random weights (status
+``"random_frozen"``, one warning).  Those random draws are the port's own
+(JAX's threefry cannot be reproduced in torch), so the two packages' LPIPS
+agree only on loaded or carried-over weights.  Nothing is downloaded.  The
+VGG and SqueezeNet backbones are not ported (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import warnings
+from functools import lru_cache
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+LPIPS_CHANNELS: Dict[str, Tuple[int, ...]] = {"alex": (64, 192, 384, 256, 256)}
+
+# LPIPS input normalisation constants (shift/scale on [-1, 1] inputs).
+_LPIPS_SHIFT = (-0.030, -0.088, -0.188)
+_LPIPS_SCALE = (0.458, 0.448, 0.450)
+
+
+class AlexNetFeatures(nn.Module):
+    """torchvision ``alexnet().features`` returning the five ReLU taps LPIPS
+    uses; convs named by their ``features`` index, as in the JAX module."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv_0 = nn.Conv2d(3, 64, 11, stride=4, padding=2)
+        self.conv_3 = nn.Conv2d(64, 192, 5, padding=2)
+        self.conv_6 = nn.Conv2d(192, 384, 3, padding=1)
+        self.conv_8 = nn.Conv2d(384, 256, 3, padding=1)
+        self.conv_10 = nn.Conv2d(256, 256, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        t0 = torch.relu(self.conv_0(x))
+        t1 = torch.relu(self.conv_3(F.max_pool2d(t0, 3, 2)))
+        t2 = torch.relu(self.conv_6(F.max_pool2d(t1, 3, 2)))
+        t3 = torch.relu(self.conv_8(t2))
+        t4 = torch.relu(self.conv_10(t3))
+        return t0, t1, t2, t3, t4
+
+
+class LPIPS(nn.Module):
+    """LPIPS distance, ``net_type="alex"`` only; ``forward(x, y)`` on NHWC
+    images returns the per-sample distances ``[B]``."""
+
+    def __init__(self, net_type: str = "alex"):
+        super().__init__()
+        if net_type not in LPIPS_CHANNELS:
+            raise NotImplementedError(f"LPIPS net_type {net_type!r} is not ported to PyTorch "
+                                      "(alex only; ROADMAP.md, queue 1)")
+        self.net_type = net_type
+        self.net = AlexNetFeatures()
+        for k, c in enumerate(LPIPS_CHANNELS[net_type]):
+            setattr(self, f"lin_{k}", nn.Parameter(torch.zeros(c, 1)))
+        self.register_buffer("shift", torch.tensor(_LPIPS_SHIFT).reshape(1, 3, 1, 1))
+        self.register_buffer("scale", torch.tensor(_LPIPS_SCALE).reshape(1, 3, 1, 1))
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        def features(img):
+            return self.net((img.permute(0, 3, 1, 2) - self.shift) / self.scale)
+
+        total = 0.0
+        for k, (ax, ay) in enumerate(zip(features(x), features(y))):
+            nx = ax / torch.sqrt(torch.sum(ax * ax, dim=1, keepdim=True) + 1e-10)
+            ny = ay / torch.sqrt(torch.sum(ay * ay, dim=1, keepdim=True) + 1e-10)
+            d = torch.einsum("bchw,c->bhw", torch.square(nx - ny),
+                             getattr(self, f"lin_{k}").abs()[:, 0])
+            total = total + d.mean(dim=(1, 2))
+        return total
+
+
+# ---------------------------------------------------------------------------
+# Weight loading
+# ---------------------------------------------------------------------------
+
+
+def weights_dir() -> Optional[str]:
+    return os.environ.get("MDIE_WEIGHTS_DIR")
+
+
+# npz name → "pretrained" | "random_frozen", filled by init_frozen_params and
+# written into the engine's summary.json ("pretrained_weights").
+_WEIGHT_STATUS: Dict[str, str] = {}
+
+
+def weight_status() -> Dict[str, str]:
+    """Which feature networks loaded converted pretrained weights in this process."""
+    return dict(_WEIGHT_STATUS)
+
+
+def _flax_to_torch(key: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    """A Flax path of the JAX module (``net/conv_0/kernel``) → the port's
+    parameter name and layout (``net.conv_0.weight``, HWIO → OIHW)."""
+    parts = key.split("/")
+    if parts[-1] == "kernel":
+        return ".".join(parts[:-1] + ["weight"]), arr.transpose(3, 2, 0, 1)
+    return ".".join(parts), arr
+
+
+@torch.no_grad()
+def _random_init(module: nn.Module, seed: int) -> None:
+    """Seeded draws with the JAX module's initialisers' statistics: conv
+    kernels LeCun normal (std 1/√fan_in), biases 0, ``lin`` U[0, 0.1)."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in module.named_parameters():
+        if name.endswith("weight"):
+            p.normal_(0.0, 1.0 / math.sqrt(p[0].numel()), generator=gen)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            p.uniform_(0.0, 0.1, generator=gen)
+
+
+@lru_cache(maxsize=4)
+def _warn_once(msg: str) -> None:
+    warnings.warn(msg, stacklevel=3)
+
+
+@torch.no_grad()
+def init_frozen_params(module: nn.Module, npz_name: str, seed: int = 42) -> nn.Module:
+    """Freeze ``module`` (eval, no grad) with its weights from
+    ``$MDIE_WEIGHTS_DIR/<npz_name>`` when that file exists, else the seeded
+    random draws with a one-time warning.  Returns the module."""
+    _random_init(module, seed)
+    wdir = weights_dir()
+    path = os.path.join(wdir, npz_name) if wdir else None
+    if path and os.path.isfile(path):
+        params = dict(module.named_parameters())
+        n = 0
+        with np.load(path) as npz:
+            for key in npz.files:
+                name, arr = _flax_to_torch(key, np.asarray(npz[key]))
+                if name not in params:
+                    continue
+                if tuple(arr.shape) != tuple(params[name].shape):
+                    raise ValueError(f"Shape mismatch for {key}: {arr.shape} vs "
+                                     f"{tuple(params[name].shape)}")
+                params[name].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+                n += 1
+        if n == 0:
+            raise ValueError(f"No matching weights found in {path}")
+        _WEIGHT_STATUS[npz_name] = "pretrained"
+    else:
+        _WEIGHT_STATUS[npz_name] = "random_frozen"
+        _warn_once(
+            f"Pretrained weights '{npz_name}' not found (MDIE_WEIGHTS_DIR={wdir!r}); using "
+            "seeded random frozen features. Run tools/convert_torch_weights.py where "
+            "torchvision weights are available for exact perceptual parity."
+        )
+    return module.eval().requires_grad_(False)

@@ -2,11 +2,14 @@
 
     python -m multi_degradation_image_enhancement_tpu_torch.run \\
         -c multi_degradation_image_enhancement_tpu/config/noise_synthetic.json -p train
+    python -m multi_degradation_image_enhancement_tpu_torch.run \\
+        -c multi_degradation_image_enhancement_tpu/config/noise_synthetic.json -p test
 
 The same ``-c/-p`` contract and config files as the JAX runner (read as
-files; nothing of the JAX package is imported).  Only ``-p train`` is ported;
-``-p test`` raises (ROADMAP.md, queue 1).  ``train.device`` picks the device:
-``"cuda"``/``"tpu"`` → CUDA (raises without a card), ``"cpu"`` → CPU.
+files; nothing of the JAX package is imported).  ``-p train`` trains and
+writes the checkpoint; ``-p test`` scores it.  The phase's block picks the
+device (``train.device`` / ``test.device``): ``"cuda"``/``"tpu"`` → CUDA
+(raises without a card), ``"cpu"`` → CPU.
 """
 
 from __future__ import annotations
@@ -31,9 +34,6 @@ from multi_degradation_image_enhancement_tpu_torch.utils.registry import (
 def build_session(config):
     """Resolve a config into ``(logger, engine)`` without running anything."""
     phase = config["phase"]
-    if phase != "train":
-        raise NotImplementedError(f"phase {phase!r} is not ported to PyTorch yet "
-                                  "(ROADMAP.md, queue 1: the eval engine)")
     random.seed(42)
     np.random.seed(42)
     torch.manual_seed(42)
@@ -52,7 +52,10 @@ def main(config):
     if logger.run_dir():
         print(f"[LOGGER] Run dir: {logger.run_dir()}")
     try:
-        engine.train()
+        if config["phase"] == "train":
+            engine.train()
+        else:
+            engine.test()
     finally:
         logger.close()
     return engine
@@ -60,12 +63,12 @@ def main(config):
 
 def _cli():
     parser = argparse.ArgumentParser(
-        description="Train a restoration task from a JSON config (PyTorch port).")
+        description="Train or evaluate a restoration task from a JSON config (PyTorch port).")
     parser.add_argument("-c", "--config", type=str,
                         default="multi_degradation_image_enhancement_tpu/config/noise_synthetic.json",
                         help="Path to the JSON configuration file")
     parser.add_argument("-p", "--phase", type=str, choices=["train", "test"], default="train",
-                        help="Phase to run (only train is ported)")
+                        help="Phase to run (train or test)")
     return parser.parse_args()
 
 

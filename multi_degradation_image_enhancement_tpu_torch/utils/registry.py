@@ -2,8 +2,9 @@
 of ``multi_degradation_image_enhancement_tpu/utils/registry.py``).
 
 The shipped configs name the reference's modules (``["models.cdan",
-"CDAN"]``); each name this slice needs maps to the port's class.  Any other
-name raises and names ROADMAP.md.
+"CDAN"]``); each name that the train and test phases of the synthetic
+configs use maps to the port's class.  Any other name raises and names
+ROADMAP.md.
 """
 
 from __future__ import annotations

@@ -117,3 +117,96 @@ def test_bf16_serving_forward_matches_jax(jax_cdan, port_cdan):
     assert got.dtype == torch.float32
     err = np.abs(got.numpy() - want)
     assert err.max() < 2e-2 and err.mean() < 2e-3
+
+
+@pytest.fixture(scope="module")
+def live_cdan(jax_cdan):
+    """The module's JAX CDAN with BN statistics that keep the whole path live
+    (running means U(-0.1, 0.1), variances U(0.3, 1.0)): at the U(0.5, 1.5)
+    means of ``jax_cdan`` the decoder's ReLUs zero everything but the global
+    residual.  (JAX variables, the port's CDAN, JAX module apply.)"""
+    m, variables, _ = jax_cdan
+    rng = np.random.RandomState(5)
+
+    def draw(path, t):
+        if jax.tree_util.keystr(path).endswith("['mean']"):
+            return rng.uniform(-0.1, 0.1, t.shape).astype(np.float32)
+        return rng.uniform(0.3, 1.0, t.shape).astype(np.float32)
+
+    live = {"params": variables["params"],
+            "batch_stats": jax.tree_util.tree_map_with_path(draw, variables["batch_stats"])}
+    model = CDAN()
+    model.load_state_dict(flax_to_state_dict(live), strict=True)
+    apply = jax.jit(lambda vv, z: m.apply(vv, z, train=False))
+    return live, model.eval(), lambda z: np.asarray(apply(live, jnp.asarray(z)))
+
+
+@pytest.mark.parametrize("conv_impl", ["xla", "kernel"])
+def test_cm_forward_matches_jax_and_module(live_cdan, conv_impl, monkeypatch):
+    """The all-channel-major forward at 1×16×32, weights carried across and
+    BN statistics perturbed, against JAX ``build_fast_apply_cm`` (interpret
+    mode, its default conv table) and against the port's f32 ``CDAN``, with
+    the CM forward's bar (tests/test_cdan_fast.py:108-109).  ``kernel`` runs
+    every conv through the #8 plain version."""
+    from multi_degradation_image_enhancement_tpu.models.cdan_fast import (
+        build_fast_apply_cm as jax_build_cm,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
+
+    variables, model, apply_module = live_cdan
+    x = np.random.RandomState(4).rand(1, H, W, 3).astype(np.float32)
+    want = np.asarray(jax_build_cm(variables, jnp.float32, interpret=True)(jnp.asarray(x)))
+    module = apply_module(x)
+    assert module.std() > 0.1  # the restoration path is live, not a constant map
+    assert np.abs(want - module).max() < 2e-2
+
+    for name in cdan_fast._CM_CONV_IMPL:
+        monkeypatch.setitem(cdan_fast._CM_CONV_IMPL, name, conv_impl)
+    with torch.no_grad():
+        ref = model(torch.from_numpy(x)).numpy()
+    for dt in (torch.float32, torch.bfloat16):
+        got = cdan_fast.build_fast_apply_cm(model, dt, "cpu")(torch.from_numpy(x))
+        assert got.shape == (1, H, W, 3) and got.dtype == torch.float32
+        for other in (want, ref):
+            err = np.abs(got.numpy() - other)
+            assert err.max() < 2e-2 and err.mean() < 2e-3, (dt, err.max(), err.mean())
+
+
+def test_serving_apply_dispatches_by_preference_and_shape(port_cdan, tmp_path, monkeypatch):
+    """``build_serving_apply``: with ``prefer_cm`` the CM forward for shapes it
+    takes and the per-block forward for the rest; without it (the shipped
+    tuning file) always the per-block forward; ``MDIE_SERVING_TUNING`` names
+    another tuning file (tests/test_cdan_fast.py:112-139)."""
+    import json
+
+    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
+
+    calls = []
+    monkeypatch.setattr(cdan_fast, "build_fast_apply_cm", lambda *a: lambda x: calls.append("cm"))
+    monkeypatch.setattr(cdan_fast, "build_fast_apply", lambda *a: lambda x: calls.append("v1"))
+
+    fn = cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu", prefer_cm=True)
+    fn(torch.zeros(1, 32, 48, 3))  # supported -> cm
+    fn(torch.zeros(1, 8, 8, 3))    # w % 16 != 0 -> v1
+    fn(torch.zeros(1, 12, 32, 3))  # h % 8 != 0 -> v1
+    assert calls == ["cm", "v1", "v1"]
+    assert cdan_fast.cm_forward_supported(256, 384)  # the JAX package's VMEM bound says no
+
+    calls.clear()
+    monkeypatch.delenv(cdan_fast.TUNING_ENV, raising=False)
+    assert cdan_fast.serving_prefer_cm() is False  # as shipped
+    cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")(torch.zeros(1, 32, 48, 3))
+    assert calls == ["v1"]
+
+    tuning = tmp_path / "tuning.json"
+    tuning.write_text(json.dumps({"prefer_cm": True, "db_k_stack_max_ci": 56, "db_nhwc_io": True}))
+    monkeypatch.setenv(cdan_fast.TUNING_ENV, str(tuning))
+    calls.clear()
+    cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")(torch.zeros(1, 32, 48, 3))
+    assert calls == ["cm"]
+    monkeypatch.setenv(cdan_fast.TUNING_ENV, str(tmp_path / "missing.json"))
+    assert cdan_fast.serving_prefer_cm() is False
+    tuning.write_text(json.dumps({"prefer_cm": True, "db_bf16_act": True}))
+    monkeypatch.setenv(cdan_fast.TUNING_ENV, str(tuning))
+    with pytest.raises(NotImplementedError, match="db_bf16_act"):
+        cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")

@@ -124,3 +124,34 @@ def test_growth_rate_other_than_16():
     with torch.no_grad():
         got = dense_block(_nchw(x), pack).permute(0, 2, 3, 1).numpy()
     assert np.abs(got - want).max() <= 1e-4
+
+
+@pytest.mark.parametrize("c_in", [3, 64])
+def test_fused_dense_block_cm_matches_jax_row_tiled(monkeypatch, c_in):
+    """``fused_dense_block_cm`` (NHWC, from the module's eval statistics)
+    against the JAX entry of the row-tiled kernel #3, its tiled mode forced
+    by a small VMEM target as tests/test_pallas_kernels.py:213-227 does, run
+    in interpret mode.  bf16-class tolerance (test_pallas_kernels.py:64-65):
+    the TPU kernel holds features in bf16, the port's f32 plain version does
+    not; bf16 input makes the plain version round where the kernel rounds."""
+    from multi_degradation_image_enhancement_tpu.ops.pallas import dense_block_cm as jax_cm
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        fused_dense_block_cm,
+    )
+
+    h, w = 32, 16
+    _, variables, x = _jax_block(c_in, h, w, seed=7)
+    monkeypatch.setattr(jax_cm, "_VMEM_TARGET_BYTES", 300 * 1024)
+    plan = jax_cm._plan(h, w, jax_cm._ceil16(c_in))
+    assert plan["mode"] == "tiled" and plan["rows"] < h  # several tiles with halos
+    want = np.asarray(jax_cm.fused_dense_block_cm(
+        jnp.asarray(x), variables["params"], variables["batch_stats"], interpret=True))
+
+    block = _port_block(variables, c_in)
+    n0 = dense_block.launches
+    for dt in (torch.float32, torch.bfloat16):
+        got = fused_dense_block_cm(torch.from_numpy(x).to(dt), block)
+        assert got.shape == (2, h, w, c_in) and got.dtype == dt
+        err = np.abs(got.float().numpy() - want)
+        assert err.max() <= 5e-2 and err.mean() <= 5e-3, (dt, err.max(), err.mean())
+    assert dense_block.launches == n0  # the CPU takes the plain version

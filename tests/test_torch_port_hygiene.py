@@ -1,7 +1,7 @@
 """PyTorch port hygiene: it imports and runs a CPU serving step and the CPU
-training CLI with JAX blocked, refuses CUDA without a card, counts no launch
-on the plain path, refuses to run its inference kernels under autograd, and
-its C entry points match the CUDA sources."""
+training and test CLI with JAX blocked, refuses CUDA without a card, counts
+no launch on the plain path, refuses to run its inference kernels under
+autograd, and its C entry points match the CUDA sources."""
 
 import os
 import re
@@ -16,6 +16,11 @@ from multi_degradation_image_enhancement_tpu_torch import serving
 from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
 from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_fast_apply
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
+    conv3x3,
+    conv3x3_pool,
+    pack_conv,
+)
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
     dense_block,
     pack_dense_block,
@@ -26,7 +31,7 @@ from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import 
     growth_layer_fwd,
 )
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.noise import noise_degrade_01
-from tests.torch_train_cli import check_tiny_run, write_tiny_config
+from tests.torch_train_cli import check_tiny_run, check_tiny_test_run, write_tiny_config
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG_DIR = ROOT / "multi_degradation_image_enhancement_tpu_torch"
@@ -49,13 +54,14 @@ assert bool(torch.isfinite(out).all()) and 0.0 <= float(out.min()) and float(out
 from multi_degradation_image_enhancement_tpu_torch import run
 from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
 run.main(load_config(sys.argv[2], phase="train"))
+run.main(load_config(sys.argv[2], phase="test"))
 print("OK", len(mods))
 """
 
 
 def test_port_imports_and_runs_with_jax_blocked(tmp_path):
-    """Every module imports, a serving step runs and the CPU training CLI
-    trains (the tiny config of tests/test_torch_train.py) with JAX blocked."""
+    """Every module imports, a serving step runs, and the CPU CLI trains and
+    scores (the tiny config of tests/torch_train_cli.py) with JAX blocked."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN, str(ROOT), str(write_tiny_config(tmp_path))],
@@ -64,8 +70,9 @@ def test_port_imports_and_runs_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr
     last = proc.stdout.splitlines()[-1].split()
     assert last[0] == "OK"
-    assert int(last[1]) >= 25  # every module of the package was imported
+    assert int(last[1]) >= 28  # every module of the package was imported
     check_tiny_run(tmp_path)
+    check_tiny_test_run(tmp_path)
 
 
 def test_no_jax_import_in_port_sources():
@@ -90,7 +97,7 @@ def test_cuda_without_a_card_raises():
 
 def _launches():
     return (noise_degrade_01.launches, dense_block.launches, growth_layer_fwd.launches,
-            growth_layer_bwd.launches)
+            growth_layer_bwd.launches, conv3x3.launches, conv3x3_pool.launches)
 
 
 def test_plain_path_counts_no_launch():
@@ -100,6 +107,9 @@ def test_plain_path_counts_no_launch():
     with torch.no_grad():
         out = dense_block(torch.rand(1, 64, 4, 4), pack_dense_block(block))
     assert out.shape == (1, 64, 4, 4)
+    pack = pack_conv(torch.randn(8, 64, 3, 3), torch.zeros(8))
+    assert conv3x3(out, pack).shape == (1, 8, 4, 4)
+    assert conv3x3_pool(out, pack).shape == (1, 8, 2, 2)
     # a fused training DenseBlock, forward and backward, through the plain growth layer
     block.train()
     block.fused = True
@@ -132,7 +142,7 @@ def test_c_entry_points_exist_in_sources():
     declared = re.findall(r'"(mdie_\w+)"', Path(_build.__file__).read_text())
     assert {"mdie_noise_degrade", "mdie_philox_bits", "mdie_growth_layer",
             "mdie_transition", "mdie_growth_fwd", "mdie_growth_bwd",
-            "mdie_growth_bwd_scratch"} <= set(declared)
+            "mdie_growth_bwd_scratch", "mdie_conv3x3", "mdie_conv3x3_pool"} <= set(declared)
     for name in declared + ["mdie_error_string"]:
         assert re.search(rf"\b{name}\(", src), name
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
