@@ -41,11 +41,34 @@ line per phase, and exits non-zero at the first failure:
     ``MDIE_SERVING_TUNING`` naming a tuning copy with ``prefer_cm: true``,
     and with the test images resized to 480×640 (the #3 route);
 17. times: #8 and #9 vs plain, the CM vs the per-block forward, the eval
-    step per B=16 batch, the whole ``-p test``.
+    step per B=16 batch, the whole ``-p test``;
+18. ``fused_dense_block`` (#10's entry) vs its plain version at the four
+    block shapes of the B=16·256×384 forward, f32 and bf16 x, 5 launches a
+    call; then its public entry on those four blocks with the counter reset;
+    its time beside ``fused_dense_block_cm`` and plain;
+19. the nine degradations at B=16·256×384 on the card vs the same function
+    on the CPU with the same explicit parameters, with TF32 at PyTorch's
+    defaults (as the CLI leaves them), and each one's ms per batch;
+20. ``run.main`` on jpeg_synthetic, low_light_synthetic and
+    pixelation_hard_synthetic: one epoch of 64 images, then ``-p test`` on 64
+    test images (low_light's POST stage: ``post`` row, ``pp_*`` PNGs), with
+    the growth-train and DenseBlock counters reset before each run and read
+    after;
+21. times: jpeg_synthetic's bf16 train step with and without its perceptual
+    terms (VGG19 + LPIPS), beside noise's (TF32 off); then ``torch.profiler``
+    over three of its steps: device time, busy share, the ten costliest
+    kernels; both with TF32 at PyTorch's defaults, as the CLI trains;
+22. per kernel, the least time the card could take for the work timed
+    (``bound_ms``: FLOPs over 989 TFLOP/s bf16, or 67 TFLOP/s f32 for
+    elementwise work, against bytes over 3.35 TB/s, the larger) and, where
+    one PyTorch call computes the same function, that call's time.
 
 Phases 5, 12-14 and 17 use a CDAN whose BatchNorm statistics keep the whole path
 live (``live_cdan``): with ``init_cdan``'s statistics the decoder's ReLUs
 pass nothing but the global residual.
+
+Phases 19 and 21 run with ``cudnn.allow_tf32`` True and ``matmul.allow_tf32``
+False (PyTorch's defaults) and turn both off again after them.
 
 The last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": {...}}``.
@@ -54,6 +77,7 @@ Weights are random (seeded); no trained checkpoint is needed.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -66,7 +90,13 @@ BENCH_BATCH, BENCH_SIZE = 128, 256
 EVAL_BATCH, EVAL_HW = 16, (256, 384)
 TRAIN_BATCH = 16
 CLI_IMAGES = 64  # one epoch = four train steps at B=16
-CONFIG = Path("multi_degradation_image_enhancement_tpu") / "config" / "noise_synthetic.json"
+CONFIG_DIR = Path("multi_degradation_image_enhancement_tpu") / "config"
+CONFIG = CONFIG_DIR / "noise_synthetic.json"
+# the configs phase 20 trains and scores: every new loss term, transform and the POST stage
+CLI_TASKS = ("jpeg_synthetic", "low_light_synthetic", "pixelation_hard_synthetic")
+# H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them, HBM3
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 # (block, c_in, (H, W)) of the four DenseBlocks of a B=16·256×384 train step;
 # layer i of a block reads c_in + 16·i channels.
 GT_BLOCKS = [("dense1", 64, (128, 192)), ("dense2", 128, (64, 96)),
@@ -90,6 +120,25 @@ DB_SHAPES = [
     ("dense1", EVAL_BATCH, 64, (128, 192)), ("dense2", EVAL_BATCH, 128, (64, 96)),
     ("dense3", EVAL_BATCH, 256, (32, 48)), ("final_dense", EVAL_BATCH, 3, (256, 384)),
 ]
+
+
+def read_config(task: str) -> dict:
+    """A shipped config as a plain dict (the port's dialect: ``//`` comments)."""
+    from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
+
+    return json.loads(json.dumps(load_config(str(CONFIG_DIR / f"{task}.json"))))
+
+
+@contextlib.contextmanager
+def tf32_defaults(torch):
+    """PyTorch's TF32 defaults, as the CLI leaves them (cuDNN convs in TF32,
+    matmuls in full f32), for the block; both off again after it."""
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} " \
+              f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def say(phase: str, msg: str) -> None:
@@ -421,7 +470,7 @@ def _train_once(torch, model, fused: bool, plain: bool, batch, masks):
         for block in m.dense_blocks():
             block.growth_fn = growth_layer_plain
     state = TrainState.create(m, 1e-3)
-    loss = make_train_step(build_loss_pipeline(_loss_config()), "fp32")(state, *batch, masks)
+    loss = make_train_step(build_loss_pipeline(_loss_config(), "cuda"), "fp32")(state, *batch, masks)
     grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
     stats = {n: b.clone() for n, b in m.named_buffers() if n.endswith(("running_mean", "running_var"))}
     return float(loss["total"]), grads, stats
@@ -469,10 +518,10 @@ def phase_train_step(torch):
     require(err <= bound, "train-step gradients, kernels vs plain")
 
 
-def phase_cli_train(torch):
-    """``run.main`` on noise_synthetic.json cut to one epoch of 64 images
-    (four steps at B=16·256x384, bf16, fused DenseBlocks, BN recalibration
-    with 3 passes), on CUDA, with every growth launch counted."""
+def phase_cli_train(torch, task: str = "noise_synthetic"):
+    """``run.main`` on ``<task>.json`` cut to one epoch of 64 images (four
+    steps at B=16·256x384, bf16, fused DenseBlocks, and the config's BN
+    recalibration passes), on CUDA, with every growth launch counted."""
     import shutil
 
     from multi_degradation_image_enhancement_tpu_torch import run
@@ -484,17 +533,17 @@ def phase_cli_train(torch):
     )
     from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
 
-    work = Path("build") / "chip_smoke_train"
+    work = Path("build") / "chip_smoke_train" / task
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    cfg = json.loads(CONFIG.read_text())
+    cfg = read_config(task)
     cfg["train"].update(n_epoch=1, model_path=str(work / "weights"))
     cfg["train"]["dataset"]["args"]["n_images"] = CLI_IMAGES
     cfg["logging"]["root_dir"] = str(work / "runs")
     (work / "config.json").write_text(json.dumps(cfg))
     config = load_config(str(work / "config.json"), phase="train")
     steps = CLI_IMAGES // cfg["train"]["dataloader"]["args"]["batch_size"]
-    passes = cfg["train"]["bn_recalibration"]["passes"]
+    passes = (cfg["train"].get("bn_recalibration") or {}).get("passes", 0)
 
     growth_layer_fwd.launches = growth_layer_bwd.launches = dense_block.launches = 0
     t0 = time.perf_counter()
@@ -504,14 +553,14 @@ def phase_cli_train(torch):
     launches = {"growth_train_fwd": growth_layer_fwd.launches,
                 "growth_train_bwd": growth_layer_bwd.launches}
 
-    (csv_path,) = (work / "runs").glob("noise_synthetic/*/train.csv")
+    (csv_path,) = (work / "runs").glob(f"{task}/*/train.csv")
     header, row = csv_path.read_text().splitlines()
     cols = dict(zip(header.split(","), row.split(",")))
     loss = float(cols["loss_total"])
     weights = work / "weights" / cfg["train"]["model_name"]
     load_weights(str(weights), CDAN())  # strict
     want_fwd, want_bwd = 16 * (steps + passes * steps), 16 * steps
-    say("cli_train", f"{steps} steps B=16x256x384 {engine.precision}, fused_dense "
+    say("cli_train", f"{task}: {steps} steps B=16x256x384 {engine.precision}, fused_dense "
         f"{engine.network.fused_dense}, + {passes} recalibration passes in {seconds:.1f} s: "
         f"epoch loss {loss:.5f}; {weights} loads strictly; launches {launches} (expected fwd "
         f"{want_fwd} = 16 x ({steps} steps + {passes * steps} recalibration forwards), bwd "
@@ -743,10 +792,12 @@ def phase_requests_cm(torch):
     return launches, step, step_k, clean
 
 
-def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_IMAGES):
-    """One ``run.main`` ``-p test`` on noise_synthetic.json's test block cut
-    to ``images`` images (optionally resized to ``hw``), scoring the
-    checkpoint in ``ckpt_dir``, every launch counted; returns its record."""
+def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_IMAGES,
+              task: str = "noise_synthetic"):
+    """One ``run.main`` ``-p test`` on ``<task>.json``'s test block cut to
+    ``images`` images (optionally resized to ``hw``), scoring the checkpoint
+    in ``ckpt_dir``, every launch counted; with post-processing on, the
+    ``post`` row and the post-processed PNGs too.  Returns its record."""
     import os
     import shutil
 
@@ -758,7 +809,7 @@ def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_I
     work = Path("build") / "chip_smoke_test" / name
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    cfg = json.loads(CONFIG.read_text())
+    cfg = read_config(task)
     cfg["test"].update(model_path=str(ckpt_dir))
     cfg["test"]["dataset"]["args"]["n_images"] = images
     if hw is not None:
@@ -789,22 +840,32 @@ def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_I
             else:
                 os.environ[k] = v
 
-    (csv_path,) = (work / "runs").glob("noise_synthetic/*/test.csv")
-    header, row = csv_path.read_text().splitlines()
-    cols = dict(zip(header.split(","), row.split(",")))
+    (csv_path,) = (work / "runs").glob(f"{task}/*/test.csv")
+    header, *lines = csv_path.read_text().splitlines()
+    rows = {r["stage"]: r for r in (dict(zip(header.split(","), ln.split(","))) for ln in lines)}
     summary = json.loads((csv_path.parent / "summary.json").read_text())
-    pngs = sorted((work / "outputs").glob("raw_*.png"))
-    scores = {k: float(cols[k]) for k in ("loss_total", "metric_psnr", "metric_ssim", "metric_lpips")}
+    post_on = bool(cfg["post_processing"]["enabled"])
+    pngs = sorted((work / "outputs").glob(f"{cfg['save_outputs']['raw_prefix']}*.png"))
+    pp_pngs = sorted((work / "outputs").glob(f"{cfg['save_outputs']['post_prefix']}*.png"))
+    keys = ("loss_total", "metric_psnr", "metric_ssim", "metric_lpips")
+    scores = {k: float(rows["pre"][k]) for k in keys}
+    post = {k: float(rows["post"][k]) for k in keys} if "post" in rows else None
     hw_s = f"{hw[0]}x{hw[1]}" if hw else f"{EVAL_HW[0]}x{EVAL_HW[1]}"
     say("cli_test", f"{name}: {images} images B={bsz} {hw_s} {engine.precision} in {seconds:.2f} s "
-        f"({images / seconds:.1f} img/s with PNG writes): {scores}; {len(pngs)} PNGs; summary "
+        f"({images / seconds:.1f} img/s with PNG writes): pre {scores}" + (f", post {post}" if post
+        else "") + f"; {len(pngs)} raw + {len(pp_pngs)} post-processed PNGs; summary "
         f"test_batches {summary.get('test_batches')}, pretrained_weights "
         f"{summary.get('pretrained_weights')}; launches {launches}")
-    require(cols["type"] == "test" and cols["stage"] == "pre" and int(cols["batches"]) == batches,
-            "test.csv has its pre row")
+    require(sorted(rows) == (["post", "pre"] if post_on else ["pre"]), "test.csv has its stage rows")
+    for cols in rows.values():
+        require(cols["type"] == "test" and int(cols["batches"]) == batches, "test.csv rows")
     require(all(math.isfinite(v) for v in scores.values()), "PRE loss, PSNR, SSIM, LPIPS finite")
-    require(summary.get("test_batches") == batches, "summary.json has its test entries")
-    require(len(pngs) == images, "one PNG per scored image")
+    require(post is None or all(math.isfinite(v) for v in post.values()), "POST scores finite")
+    require(summary.get("test_batches") == batches
+            and summary.get("post_processing_enabled") == post_on, "summary.json has its test entries")
+    require(len(pngs) == images, "one raw PNG per scored image")
+    want_pp = images if post_on and cfg["save_outputs"].get("save_postprocessed") else 0
+    require(len(pp_pngs) == want_pp, "one post-processed PNG per scored image where configured")
     require(launches["dense_block"] == 20 * batches, "20 DenseBlock launches per batch")
     return {"seconds": seconds, "launches": launches, "engine": engine, "scores": scores,
             "batches": batches}
@@ -903,6 +964,239 @@ def eval_times(torch, smi, model, shipped, step, step_k, clean):
 
 
 
+def _cdan_blocks(model) -> dict:
+    return {"dense1": model.encoder.dense1, "dense2": model.encoder.dense2,
+            "dense3": model.encoder.dense3, "final_dense": model.decoder.final_dense}
+
+
+def phase_fused_dense_block(torch, smi, model):
+    """#10's entry ``fused_dense_block`` (NHWC, the affine folded in x's
+    dtype) vs its plain version (``dense_block_plain`` on the same fold) at
+    the four block shapes of the B=16·256x384 forward, f32 and bf16 x: max
+    <= 5e-2, mean <= 5e-3, 5 launches a call.  Then the public entry on those
+    four blocks (bf16) with the counter reset: 20 launches.  Times (bf16,
+    the four blocks): the entry, ``fused_dense_block_cm``, plain."""
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        dense_block, dense_block_plain, fold_dense_block, fused_dense_block, fused_dense_block_cm,
+    )
+
+    dev = torch.device("cuda")
+    blocks = _cdan_blocks(model.to(dev))
+    g = torch.Generator(device=dev).manual_seed(17)
+    shapes = DB_SHAPES[4:]
+    worst = 0.0
+    for name, bsz, c_in, (h, w) in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.rand((bsz, h, w, c_in), device=dev, generator=g).to(dt)
+            n0 = dense_block.launches
+            got = fused_dense_block(x, blocks[name])
+            n = dense_block.launches - n0
+            pack = fold_dense_block(blocks[name], dt, dev)
+            ref = dense_block_plain(x.permute(0, 3, 1, 2).contiguous(), pack).permute(0, 2, 3, 1)
+            torch.cuda.synchronize()
+            require(got.dtype == dt and got.shape == x.shape, f"#10 {name} {dt} output dtype/shape")
+            err = (got.float() - ref.float()).abs()
+            worst = max(worst, err.max().item())
+            say("fused_dense_block", f"{name} B={bsz} c={c_in} {h}x{w} {dt}: max "
+                f"{err.max().item():.3e} (limit 5e-2) mean {err.mean().item():.3e} (limit 5e-3); "
+                f"launches {n} (expected 5)")
+            require(err.max().item() <= 5e-2 and err.mean().item() <= 5e-3, f"#10 {name} {dt}")
+            require(n == 5, "#10: 4 growth + 1 transition launches a call")
+    xs = {name: torch.rand((bsz, h, w, c), device=dev, generator=g).to(torch.bfloat16)
+          for name, bsz, c, (h, w) in shapes}
+    torch.cuda.synchronize()
+    dense_block.launches = 0
+    outs = [fused_dense_block(xs[name], blocks[name]) for name in xs]
+    torch.cuda.synchronize()
+    launches = dense_block.launches
+    require(all(bool(torch.isfinite(o).all()) for o in outs), "#10 outputs finite")
+    say("fused_dense_block", f"public entry on the four blocks of B={EVAL_BATCH}x{EVAL_HW[0]}x"
+        f"{EVAL_HW[1]} bf16: launches {launches} (expected 20)")
+    require(launches == 20, "#10 public entry: 20 launches for four blocks")
+    ms = {"kernel": 0.0, "cm_entry": 0.0, "plain": 0.0}
+    for name, x in xs.items():
+        pack = fold_dense_block(blocks[name], torch.bfloat16, dev)
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        t = {"kernel": cuda_ms(lambda: fused_dense_block(x, blocks[name]), 10),
+             "cm_entry": cuda_ms(lambda: fused_dense_block_cm(x, blocks[name]), 10),
+             "plain": cuda_ms(lambda: dense_block_plain(x_nchw, pack), 5)}
+        say("times", f"[{smi}] {name} {tuple(x.shape)} bf16: fused_dense_block {t['kernel']:.3f} ms, "
+            f"fused_dense_block_cm {t['cm_entry']:.3f} ms, plain {t['plain']:.3f} ms")
+        for k in ms:
+            ms[k] += t[k]
+    say("times", f"[{smi}] four blocks B={EVAL_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} bf16: "
+        f"fused_dense_block {ms['kernel']:.3f} ms, fused_dense_block_cm {ms['cm_entry']:.3f} ms, "
+        f"plain {ms['plain']:.3f} ms")
+    return worst, launches, ms
+
+
+def phase_degradations(torch, smi):
+    """The nine degradations at B=16·256x384 (procedural clean images on the
+    uint8 lattice) on the card vs the same function on the CPU with the same
+    explicit parameters, TF32 at PyTorch's defaults.  Pass: |d| <= 1 LSB and
+    >= 99.9% of values identical; jpeg: >= 99.5% identical and PSNR(card,
+    CPU) >= 50 dB.  Each one's ms per batch on the card."""
+    from multi_degradation_image_enhancement_tpu_torch.data.synthetic import _procedural_clean
+    from multi_degradation_image_enhancement_tpu_torch.ops import degradations as deg
+
+    with tf32_defaults(torch) as flags:
+        say("degradations", f"{flags} (PyTorch's defaults)")
+        clean = torch.from_numpy(_procedural_clean(EVAL_BATCH, *EVAL_HW, seed=7)).float()
+        card = clean.cuda()
+        times = {}
+        for i, name in enumerate(deg.DEGRADATIONS):
+            gen = torch.Generator().manual_seed(100 + i)
+            params = deg.sample_params(name, gen, EVAL_BATCH)
+            if name == "noise":
+                params["normal"] = torch.randn(clean.shape, generator=gen)
+            want = deg.apply_with_params(name, clean, params)
+            on_card = {k: v.cuda() for k, v in params.items()}
+            got = deg.apply_with_params(name, card, on_card).cpu()
+            diff = (got - want).abs()
+            same = (diff == 0).float().mean().item()
+            mse = diff.square().mean().item()
+            psnr = math.inf if mse == 0 else 10.0 * math.log10(255.0 ** 2 / mse)
+            times[name] = cuda_ms(lambda: deg.apply_with_params(name, card, on_card), 10)
+            say("degradations", f"{name} B={EVAL_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]}: card vs CPU max "
+                f"|d| {diff.max().item():.1f}, identical {same:.6f}, PSNR {psnr:.2f} dB; "
+                f"[{smi}] {times[name]:.3f} ms per batch")
+            if name == "jpeg":
+                require(same >= 0.995 and psnr >= 50.0, "jpeg card vs CPU")
+            else:
+                require(diff.max().item() <= 1.0 and same >= 0.999, f"{name} card vs CPU")
+    return times
+
+
+def phase_cli_configs(torch):
+    """Phase 20: train one epoch of 64 images and score 64 test images for
+    each of ``CLI_TASKS`` through ``run.main``; growth-train and DenseBlock
+    launches counted in each."""
+    records = {}
+    for task in CLI_TASKS:
+        launches, engine = phase_cli_train(torch, task)
+        test = _cli_test(torch, task, Path(engine.model_path), task=task)
+        require(launches["growth_train_fwd"] > 0 and launches["growth_train_bwd"] > 0
+                and test["launches"]["dense_block"] > 0, f"{task}: kernels launched")
+        records[task] = {"launches": launches, "engine": engine, "test": test}
+    return records
+
+
+def perceptual_times(torch, smi, engine, noise_ms):
+    """jpeg_synthetic's bf16 train step (CUDA events, 10 steps after 3 warm-up
+    on one loader batch) with its loss as configured and with the VGG19 and
+    LPIPS terms taken out; noise's step beside it."""
+    from multi_degradation_image_enhancement_tpu_torch.engine.model import make_train_step
+    from multi_degradation_image_enhancement_tpu_torch.ops.losses import build_loss_pipeline
+
+    loss_cfg = json.loads(json.dumps(engine.config["loss"]))
+    loss_cfg["terms"] = [t for t in loss_cfg["terms"] if t["name"] not in ("vgg_perceptual", "lpips")]
+    inputs, targets, mask = next(iter(engine.dataloader))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    full = cuda_ms(lambda: engine._train_step(engine.state, inputs, targets, gen, mask), 10, 3)
+    step = make_train_step(build_loss_pipeline(loss_cfg, "cuda"), engine.precision)
+    bare = cuda_ms(lambda: step(engine.state, inputs, targets, gen, mask), 10, 3)
+    say("times", f"[{smi}] jpeg_synthetic train step B={TRAIN_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} "
+        f"bf16: {full:.3f} ms/step ({TRAIN_BATCH / full * 1e3:.1f} img/s); without VGG19 + LPIPS "
+        f"{bare:.3f} ms ({TRAIN_BATCH / bare * 1e3:.1f} img/s): perceptual share "
+        f"{1.0 - bare / full:.3f}; noise_synthetic {noise_ms:.3f} ms/step "
+        f"({TRAIN_BATCH / noise_ms * 1e3:.1f} img/s)")
+    return full, bare
+
+
+def profile_step(torch, smi, engine, steps: int = 3):
+    """``torch.profiler`` over ``steps`` train steps of ``engine`` after two
+    warm-up steps: the device time a step (the sum over CUDA kernel rows),
+    its share of the profiled wall time, and the ten kernels with the most
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inputs, targets, mask = next(iter(engine.dataloader))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for _ in range(2):
+        engine._train_step(engine.state, inputs, targets, gen, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine._train_step(engine.state, inputs, targets, gen, mask)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    total_ms = sum(device_us(e) for e in kernels) / 1e3 / steps
+    require(total_ms > 0, "the profiler saw device time")
+    say("profile", f"[{smi}] {engine.config['name']} train step under torch.profiler: "
+        f"{total_ms:.3f} ms of kernels a step, {wall_ms:.3f} ms wall, busy share "
+        f"{total_ms / wall_ms:.3f}")
+    for e in sorted(kernels, key=lambda e: -device_us(e))[:10]:
+        say("profile", f"  {device_us(e) / 1e3 / steps:8.3f} ms/step {e.count // steps:4d}x "
+            f"{e.key[:110]}")
+    return total_ms, wall_ms
+
+
+def bound(flops: float, nbytes: float, peak: str = "bf16"):
+    """(least ms, what binds it): the larger of FLOPs over the card's peak
+    for the operands' type and bytes (each input read once, each output
+    written once) over HBM's rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[peak], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def dense_block_work(shapes, io_bytes=2):
+    """FLOPs and bytes of inference DenseBlocks (growth 16, 4 layers):
+    ``shapes`` = [(batch, c_in, h, w)], bf16 weights, x-dtype I/O."""
+    flops = nbytes = 0
+    for bsz, c, h, w in shapes:
+        p = bsz * h * w
+        cs = [c + 16 * i for i in range(4)]
+        flops += sum(2 * p * 9 * ci * 16 for ci in cs) + 2 * p * (c + 64) * c
+        nbytes += 2 * p * c * io_bytes + sum(16 * ci * 9 * 2 + ci * 8 + 64 for ci in cs)
+        nbytes += (c + 64) * c * 2 + (c + 64) * 8 + c * 4
+    return flops, nbytes
+
+
+def growth_train_work(backward: bool):
+    """FLOPs and bytes of the 16 growth layers of a B=16·256x384 train step,
+    f32 I/O, bf16 weights: the forward reads x, writes g; the backward reads
+    x and the cotangent, writes dx, da, db, dw (twice the forward's FLOPs)."""
+    flops = nbytes = 0
+    for _, c_in, (h, w) in GT_BLOCKS:
+        p = TRAIN_BATCH * h * w
+        for i in range(4):
+            c = c_in + 16 * i
+            flops += 2 * p * 9 * c * 16 * (2 if backward else 1)
+            params = 16 * c * 9 * 2 + 2 * c * 4
+            nbytes += (p * c * 4 + p * 16 * 4 + p * c * 4 + 2 * c * 4 + 16 * c * 9 * 4 + params
+                       if backward else p * c * 4 + p * 16 * 4 + params + 64)
+    return flops, nbytes
+
+
+def conv_work(shapes, pool=False):
+    """FLOPs and bytes of bf16 3x3 convs: ``shapes`` = [(batch, c_in, c_out, h, w)]."""
+    flops = nbytes = 0
+    for bsz, ci, co, h, w in shapes:
+        p = bsz * h * w
+        flops += 2 * p * 9 * ci * co
+        nbytes += p * ci * 2 + (p // 4 if pool else p) * co * 2 + co * ci * 9 * 2 + co * 4
+    return flops, nbytes
+
+
+def library_conv_ms(torch, model):
+    """One PyTorch call per CM conv shape for #8's function: bf16
+    ``F.conv2d`` (cuDNN) + ReLU on the same inputs and folded weights."""
+    import torch.nn.functional as F
+
+    _, convs = _conv_pairs(torch, model)
+    total = 0.0
+    for _, pack, x in convs:
+        b16 = pack.bias.to(torch.bfloat16)
+        total += cuda_ms(lambda: torch.relu(F.conv2d(x, pack.w_bf16, b16, padding=1)), 10)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -928,7 +1222,7 @@ def main() -> int:
     gt_err = phase_growth_train(torch)
     phase_train_step(torch)
     gt_launches, engine = phase_cli_train(torch)
-    train_times(torch, smi, engine)
+    noise_train_ms = train_times(torch, smi, engine)
     gt_ms = growth_times(torch, smi)
     conv_err = phase_conv_kernels(torch, live)
     phase_cm_forward(torch, live)
@@ -936,39 +1230,70 @@ def main() -> int:
     cm_launches, step_cm, step_k, clean = phase_requests_cm(torch)
     shipped, cm_run, photo = phase_cli_test(torch, engine)
     cm_ms = eval_times(torch, smi, live, shipped, step_cm, step_k, clean)
+    fdb_err, fdb_launches, fdb_ms = phase_fused_dense_block(torch, smi, model)
+    phase_degradations(torch, smi)
+    records = phase_cli_configs(torch)
+    with tf32_defaults(torch) as flags:  # the perceptual nets' f32 convs run as the CLI runs them
+        say("times", f"jpeg_synthetic step with {flags}")
+        perceptual_times(torch, smi, records["jpeg_synthetic"]["engine"], noise_train_ms)
+        profile_step(torch, smi, records["jpeg_synthetic"]["engine"])
+    conv_lib_ms = library_conv_ms(torch, live)
 
     src = f"{PKG}/csrc"
     ref = "multi_degradation_image_enhancement_tpu/ops/pallas"
+    n_noise = BENCH_BATCH * BENCH_SIZE * BENCH_SIZE * 3
+    eval_blocks = [(bsz, c, h, w) for _, bsz, c, (h, w) in DB_SHAPES[4:]]
+    work = {  # (FLOPs, bytes, peak) of the work each kernel's "ms" times
+        "noise_degrade": (20 * n_noise, n_noise * (4 + 2) + BENCH_BATCH * 4, "f32"),
+        "dense_block": (*dense_block_work([(bsz, c, h, w) for _, bsz, c, (h, w) in DB_SHAPES[:4]]),
+                        "bf16"),
+        "growth_train_fwd": (*growth_train_work(False), "bf16"),
+        "growth_train_bwd": (*growth_train_work(True), "bf16"),
+        "conv3x3_pool": (*conv_work([(BENCH_BATCH, 3, 64, BENCH_SIZE, BENCH_SIZE)], pool=True), "bf16"),
+        "conv3x3": (*conv_work([(BENCH_BATCH, ci, co, h, w) for _, ci, co, (h, w) in CM_CONVS]), "bf16"),
+        "dense_block_tiled": (*dense_block_work([(EVAL_BATCH, 3, *PHOTO_HW)]), "bf16"),
+        "fused_dense_block": (*dense_block_work(eval_blocks), "bf16"),
+    }
     kernels = [
         {"name": "noise_degrade", "route": "cuda", "source": f"{src}/noise.cu",
          "replaces": f"{ref}/noise.py:75", "launches": launches["noise_degrade"],
          "max_abs_err": noise_err, "ms": times["noise_degrade"][0],
-         "plain_ms": times["noise_degrade"][1]},
+         "plain_ms": times["noise_degrade"][1], "library_ms": None},
         {"name": "dense_block", "route": "cuda", "source": f"{src}/dense_block.cu",
          "replaces": f"{ref}/dense_block_cm.py:452", "launches": launches["dense_block"],
          "max_abs_err": db_err, "ms": times["dense_block"][0],
-         "plain_ms": times["dense_block"][1]},
+         "plain_ms": times["dense_block"][1], "library_ms": None},
         {"name": "growth_train_fwd", "route": "cuda", "source": f"{src}/growth_train.cu",
          "replaces": f"{ref}/growth_train.py:86",  # and its tiled variant, :288
          "launches": gt_launches["growth_train_fwd"], "max_abs_err": gt_err["fwd"],
-         "ms": gt_ms["fwd"], "plain_ms": gt_ms["plain_fwd"]},
+         "ms": gt_ms["fwd"], "plain_ms": gt_ms["plain_fwd"], "library_ms": None},
         {"name": "growth_train_bwd", "route": "cuda", "source": f"{src}/growth_train.cu",
          "replaces": f"{ref}/growth_train.py:178",  # and its tiled variant, :345
          "launches": gt_launches["growth_train_bwd"], "max_abs_err": gt_err["bwd"],
-         "ms": gt_ms["bwd"], "plain_ms": gt_ms["plain_bwd"]},
+         "ms": gt_ms["bwd"], "plain_ms": gt_ms["plain_bwd"], "library_ms": None},
         {"name": "conv3x3_pool", "route": "cuda", "source": f"{src}/conv_cm.cu",
          "replaces": f"{ref}/conv_pool_cm.py:100", "launches": cm_run["launches"]["conv3x3_pool"],
          "max_abs_err": conv_err["conv3x3_pool"], "ms": cm_ms["conv3x3_pool"][0],
-         "plain_ms": cm_ms["conv3x3_pool"][1]},
+         "plain_ms": cm_ms["conv3x3_pool"][1], "library_ms": None},
         {"name": "conv3x3", "route": "cuda", "source": f"{src}/conv_cm.cu",
          "replaces": f"{ref}/conv_cm.py:49", "launches": cm_launches["kernel"]["conv3x3"],
          "max_abs_err": conv_err["conv3x3"], "ms": cm_ms["conv3x3"][0],
-         "plain_ms": cm_ms["conv3x3"][1]},
+         "plain_ms": cm_ms["conv3x3"][1], "library_ms": conv_lib_ms},
         {"name": "dense_block_tiled", "route": "cuda", "source": f"{src}/dense_block.cu",
          "replaces": f"{ref}/dense_block_cm.py:111", "launches": photo["launches"]["dense_block"],
          "max_abs_err": tiled_err, "ms": cm_ms["dense_block_tiled"][0],
-         "plain_ms": cm_ms["dense_block_tiled"][1]},
+         "plain_ms": cm_ms["dense_block_tiled"][1], "library_ms": None},
+        {"name": "fused_dense_block", "route": "cuda", "source": f"{src}/dense_block.cu",
+         "replaces": f"{ref}/dense_block.py:56", "launches": fdb_launches,
+         "max_abs_err": fdb_err, "ms": fdb_ms["kernel"], "plain_ms": fdb_ms["plain"],
+         "library_ms": None},
     ]
+    for k in kernels:
+        flops, nbytes, peak = work[k["name"]]
+        k["bound_ms"], k["bound_by"] = bound(flops, nbytes, peak)
+        say("bounds", f"{k['name']}: {flops / 1e9:.1f} GFLOP ({peak}), {nbytes / 1e9:.3f} GB -> "
+            f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel {k['ms']:.3f} ms "
+            f"(roofline share {k['bound_ms'] / k['ms']:.1%}), launches {k['launches']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 ``multi_degradation_image_enhancement_tpu/data/loader.py``).
 
 The clean set is copied to the device once (uint8 NHWC); a batch is a device
-gather, the degradation (``ops.degradations.apply_degradation``, the plain
-noise of ``degradations.py:124``, as the JAX loader uses) and the paired
-transform, all on the device.  Yields ``(inputs, targets, mask)``: NHWC f32
+gather, the dataset's degradation (``ops.degradations.apply_degradation``,
+any of the nine; noise by its plain version, ``degradations.py:124``, as the
+JAX loader uses) and the paired transform, all on the device.  Yields ``(inputs, targets, mask)``: NHWC f32
 in the transform's output domain and a per-sample validity vector ``[B]`` of
 {0., 1.}.  Every sample is kept; a final partial batch is padded to the full
 batch size by repeating its last sample, and the mask excludes the repeats.

@@ -2,8 +2,9 @@
 on the device by the loader (counterpart of
 ``multi_degradation_image_enhancement_tpu/data/synthetic.py``).
 
-Only the procedural source is ported; a ``clean_root`` directory of images
-raises (ROADMAP.md, queue 1).  Config usage (a dataset block):
+Every degradation name of ``ops.degradations`` is accepted.  Only the
+procedural source is ported; a ``clean_root`` directory of images raises
+(ROADMAP.md, queue 1).  Config usage (a dataset block):
 
     {"name": ["data.synthetic", "SyntheticPairedDataset"],
      "args": {"degradation": "noise", "n_images": 512, "seed": 42,
@@ -52,7 +53,7 @@ class SyntheticPairedDataset:
     def __init__(self, degradation: str = "noise", clean_root: Optional[str] = None,
                  n_images: int = 512, height: int = 256, width: int = 384, seed: int = 42,
                  transform: Optional[Dict] = None):
-        degradations._check_name(degradation)  # unknown or not yet ported: raises
+        degradations.check_name(degradation)  # an unknown name raises
         if clean_root:
             raise ValueError("SyntheticPairedDataset(clean_root=...) is not ported to PyTorch "
                              "yet (ROADMAP.md, queue 1); use the procedural source")

@@ -23,13 +23,16 @@ Test phase (``model.py:464-534,756-928``): a strict load of
 ``model.fused_kernels``: ``"auto"`` takes it on CUDA and the module on the
 CPU, ``true`` forces it, ``false`` takes the module) in the precision of
 ``train.precision``; per batch the loss and metrics pipelines with
-mask-aware means (the PRE stage), averaged over batches; the outputs written
-as images by a pool of writer threads (``save_outputs``); ``test`` rows and
-the summary through the logger.  ``post_processing.enabled`` raises (not
-ported, ROADMAP.md queue 1), so the POST stage never runs.
+mask-aware means (the PRE stage), averaged over batches; with
+``post_processing.enabled`` the op chain of ``ops.post_processing`` on the
+outputs and, when ``evaluation.postprocessed`` (default: enabled), the same
+pipelines on them (the POST stage); the raw and post-processed outputs
+written as images by a pool of writer threads (``save_outputs``); ``test``
+rows (``pre``, ``post``) and the summary through the logger.
 
-The device is explicit: ``<phase>.device`` ``"cuda"`` or ``"tpu"`` means
-CUDA and raises without a card; ``"cpu"`` runs on the CPU.  The train keys no
+The device is the card unless the config asks for the CPU:
+``<phase>.device`` missing, null, ``"cuda"`` or ``"tpu"`` means CUDA and
+raises without a card; ``"cpu"`` runs on the CPU.  The train keys no
 shipped config sets are not ported: ``resume``, ``scan_chunk``, ``mesh``,
 ``remat``, ``lr_schedule``, ``grad_clip``, ``torch_init`` and
 ``logging.profiler``; each raises if set.
@@ -53,13 +56,17 @@ from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build
 from multi_degradation_image_enhancement_tpu_torch.ops.losses import build_loss_pipeline
 from multi_degradation_image_enhancement_tpu_torch.ops.metrics import build_metrics_pipeline
 from multi_degradation_image_enhancement_tpu_torch.ops.perceptual import weight_status
+from multi_degradation_image_enhancement_tpu_torch.ops.post_processing import apply_postprocessing
 
 UNPORTED_TRAIN_KEYS = ("resume", "scan_chunk", "mesh", "remat", "lr_schedule", "grad_clip",
                        "torch_init")
 
 
-def resolve_device(name: str) -> torch.device:
-    """``"cuda"``/``"tpu"`` → CUDA (raises without a card); ``"cpu"`` → CPU."""
+def resolve_device(name: Optional[str]) -> torch.device:
+    """``None``/``"cuda"``/``"tpu"`` → CUDA (raises without a card);
+    ``"cpu"`` → CPU."""
+    if name is None:
+        name = "cuda"
     if name in ("cuda", "tpu") or str(name).startswith("cuda:"):
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {name!r} asks for CUDA, but no CUDA device is available")
@@ -122,11 +129,8 @@ class Model:
         if (log_cfg.get("profiler", {}) or {}).get("enabled"):
             raise NotImplementedError("logging.profiler is not ported to PyTorch yet (ROADMAP.md)")
         self.postproc_cfg = config.get("post_processing", {}) or {}
-        if self.phase == "test" and self.postproc_cfg.get("enabled"):
-            raise NotImplementedError("post_processing.enabled is not ported to PyTorch yet "
-                                      "(ROADMAP.md, queue 1 item 4)")
 
-        self.device = resolve_device(phase_cfg.get("device") or "cpu")
+        self.device = resolve_device(phase_cfg.get("device"))
         self.epoch = int(train_cfg["n_epoch"])
         self.lr = float(train_cfg["lr"])
         self.model_path = phase_cfg["model_path"]
@@ -138,7 +142,7 @@ class Model:
         self.dataloader = dataloader
         self.logger = logger
 
-        self.loss_pipe = build_loss_pipeline(config.get("loss", {}) or {})
+        self.loss_pipe = build_loss_pipeline(config.get("loss", {}) or {}, self.device)
         self.metrics_pipe = build_metrics_pipeline(config.get("metrics", {}) or {}, self.device)
         test_cfg = config.get("test", {}) or {}
         paired = ((test_cfg.get("dataset", {}) or {}).get("is_paired"))
@@ -151,6 +155,9 @@ class Model:
         self.save_cfg.setdefault("post_prefix", self.save_cfg.get("prefix", "output_"))
         eval_cfg = config.get("evaluation", {}) or {}
         self.eval_on_raw = True if eval_cfg.get("raw") is None else bool(eval_cfg["raw"])
+        self.post_enabled = bool(self.postproc_cfg.get("enabled", False))
+        self.eval_on_post = self.post_enabled and (
+            eval_cfg.get("postprocessed") is None or bool(eval_cfg["postprocessed"]))
         self._writer_pool: Optional[ThreadPoolExecutor] = None
         self._writer_futures: List[Future] = []
 
@@ -310,9 +317,12 @@ class Model:
         return build_serving_apply(model, dtype, self.device)
 
     def _build_eval_step(self, model: torch.nn.Module):
-        """``step(inputs, targets=None, mask=None) -> {"raw", "pre_loss",
-        "pre_metric"}``: the forward, then with targets the loss and metric
-        pipelines on the raw outputs (mask-aware means, device scalars)."""
+        """``step(inputs, targets=None, mask=None) -> {"raw", "post",
+        "pre_loss", "pre_metric", "post_loss", "post_metric"}``: the forward,
+        the post-processing chain (``post`` is ``raw`` when it is off), then
+        with targets the loss and metric pipelines on the raw and on the
+        post-processed outputs, each as configured (mask-aware means, device
+        scalars)."""
         fused = self._fused_eval_forward(model)
         if fused is not None:
             print("[ENGINE] fused inference kernels active (CUDA DenseBlocks)")
@@ -325,12 +335,15 @@ class Model:
             else:
                 with torch.autocast(inputs.device.type, dtype=torch.bfloat16, enabled=bf16):
                     outputs = model(inputs)
-            result: Dict[str, object] = {"raw": outputs}
-            if targets is not None and self.eval_on_raw:
-                result["pre_loss"] = self.loss_pipe(outputs, targets=targets, inputs=inputs,
-                                                    mask=mask)
-                result["pre_metric"] = self.metrics_pipe(outputs, targets=targets, inputs=inputs,
-                                                         mask=mask)
+            post = apply_postprocessing(outputs, self.postproc_cfg)
+            result: Dict[str, object] = {"raw": outputs, "post": post}
+            for stage, out, on in (("pre", outputs, self.eval_on_raw),
+                                   ("post", post, self.eval_on_post)):
+                if targets is not None and on:
+                    result[f"{stage}_loss"] = self.loss_pipe(out, targets=targets, inputs=inputs,
+                                                             mask=mask)
+                    result[f"{stage}_metric"] = self.metrics_pipe(out, targets=targets,
+                                                                  inputs=inputs, mask=mask)
             return result
 
         return step
@@ -368,29 +381,27 @@ class Model:
 
     def test_step(self):
         """Score the checkpoint over the test loader (``model.py:817-928``):
-        paired data gets the PRE losses and metrics averaged over batches;
-        outputs are saved up to ``save_outputs.max_images``, where the loop
-        also stops."""
+        paired data gets the PRE (and, with post-processing, POST) losses
+        and metrics averaged over batches; outputs are saved up to
+        ``save_outputs.max_images``, where the loop also stops."""
         eval_fn = self._build_eval_step(self._load_for_eval())
         paired = self.is_dataset_paired
         save = bool(self.save_cfg.get("enabled", True))
         max_save = self.save_cfg.get("max_images")
-        losses: List[Dict[str, torch.Tensor]] = []
-        metrics: List[Dict[str, torch.Tensor]] = []
+        stages = {k: [] for k in ("pre_loss", "pre_metric", "post_loss", "post_metric")}
         out_counter = n_batches = 0
         try:
             for inputs, targets, mask in self.dataloader:
                 result = eval_fn(inputs, targets if paired else None, mask)
                 n_valid = int(mask.sum().item())
-                if "pre_loss" in result:
-                    losses.append(result["pre_loss"])
-                    metrics.append(result["pre_metric"])
+                for key, dicts in stages.items():
+                    if key in result:
+                        dicts.append(result[key])
                 if save and (max_save is None or out_counter < max_save):
-                    # no post-processing: the "post" outputs are the raw ones
-                    for kind, prefix_key in (("save_raw", "raw_prefix"),
-                                             ("save_postprocessed", "post_prefix")):
+                    for kind, prefix_key, out in (("save_raw", "raw_prefix", "raw"),
+                                                  ("save_postprocessed", "post_prefix", "post")):
                         if self.save_cfg.get(kind):
-                            self._save_batch_outputs(result["raw"][:n_valid], out_counter,
+                            self._save_batch_outputs(result[out][:n_valid], out_counter,
                                                      self.save_cfg[prefix_key])
                 out_counter += n_valid
                 n_batches += 1
@@ -402,20 +413,25 @@ class Model:
                 self._writer_pool.shutdown(wait=True)
                 self._writer_pool = None
 
-        loss_avg, metric_avg = _mean_of_dicts(losses), _mean_of_dicts(metrics)
-        if paired and self.eval_on_raw:
-            print("[PRE]  Losses -> " + ", ".join(f"{k}: {v:.4f}" for k, v in loss_avg.items()))
-            if metric_avg:
-                print("[PRE]  Metrics -> " + ", ".join(f"{k}: {v:.4f}" for k, v in metric_avg.items()))
+        avg = {k: _mean_of_dicts(v) for k, v in stages.items()}
+        for stage, tag, on in (("pre", "[PRE] ", self.eval_on_raw),
+                               ("post", "[POST]", self.eval_on_post)):
+            if paired and on:
+                print(f"{tag} Losses -> " + ", ".join(
+                    f"{k}: {v:.4f}" for k, v in avg[f"{stage}_loss"].items()))
+                if avg[f"{stage}_metric"]:
+                    print(f"{tag} Metrics -> " + ", ".join(
+                        f"{k}: {v:.4f}" for k, v in avg[f"{stage}_metric"].items()))
         if self._log():
             if not paired:
                 self.logger.log_test({"type": "test", "stage": "unpaired", "batches": n_batches})
-            elif self.eval_on_raw:
-                row = {"type": "test", "stage": "pre", "batches": n_batches}
-                row.update({f"loss_{k}": v for k, v in loss_avg.items()})
-                row.update({f"metric_{k}": v for k, v in metric_avg.items()})
-                self.logger.log_test(row)
+            for stage, on in (("pre", self.eval_on_raw), ("post", self.eval_on_post)):
+                if paired and on:
+                    row = {"type": "test", "stage": stage, "batches": n_batches}
+                    row.update({f"loss_{k}": v for k, v in avg[f"{stage}_loss"].items()})
+                    row.update({f"metric_{k}": v for k, v in avg[f"{stage}_metric"].items()})
+                    self.logger.log_test(row)
             self.logger.set_summary({"best_train_loss": float(self.best_loss),
                                      "test_batches": int(n_batches),
-                                     "post_processing_enabled": False})
-        return loss_avg, metric_avg
+                                     "post_processing_enabled": self.post_enabled})
+        return avg["pre_loss"], avg["pre_metric"]

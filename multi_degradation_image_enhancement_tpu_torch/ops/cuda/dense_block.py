@@ -4,7 +4,8 @@ the parameter pack, and the plain PyTorch version.
 Counterpart of ``multi_degradation_image_enhancement_tpu/ops/pallas/
 dense_block_cm.py`` (``_kernel2`` via ``_run_cm2``, and the row-tiled
 ``_kernel`` via ``_run_cm``, whose NHWC entry is :func:`fused_dense_block_cm`)
-and of ``fold_bn`` in ``ops/pallas/dense_block.py``.  NCHW in and out:
+and of ``ops/pallas/dense_block.py`` (``fold_bn``, and the row-major
+``_kernel`` whose entry is :func:`fused_dense_block`).  NCHW in and out:
 ``[B, c_in, H, W]`` → ``[B, c_in, H, W]`` in x's dtype, with no channel
 padding.
 
@@ -18,7 +19,7 @@ trainable growth layer is ``ops.cuda.growth_train``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import List
 
 import torch
@@ -204,5 +205,45 @@ def fused_dense_block_cm(x_nhwc: torch.Tensor, block) -> torch.Tensor:
     is the same.
     """
     pack = pack_dense_block(block, x_nhwc.device)
+    out = dense_block(x_nhwc.permute(0, 3, 1, 2).contiguous(), pack)
+    return out.permute(0, 2, 3, 1)
+
+
+def fold_dense_block(block, dtype: torch.dtype, device=None) -> DenseBlockPack:
+    """:func:`pack_dense_block` with the folded affines (``a``, ``b``, ``at``,
+    ``bt``) rounded to ``dtype``, as ``dense_block.py:289`` folds them in
+    x's dtype; the conv biases stay f32 there too."""
+    pack = pack_dense_block(block, device)
+
+    def rnd(t):
+        return t.to(dtype).float()
+
+    return replace(pack, a=[rnd(t) for t in pack.a], b=[rnd(t) for t in pack.b],
+                   at=rnd(pack.at), bt=rnd(pack.bt))
+
+
+def fused_dense_block(x_nhwc: torch.Tensor, block) -> torch.Tensor:
+    """Inference DenseBlock from a ``models.cdan.DenseBlock`` module's eval
+    statistics, NHWC ``[B, H, W, c_in]`` → ``[B, H, W, c_in]`` in x's dtype
+    (f32 or bf16).
+
+    Counterpart of ``dense_block.py:276`` ``fused_dense_block``, the entry of
+    the row-major TPU kernel #10 (``_kernel``, ``:56``).  Its math is that of
+    ``_kernel2``: the input and every feature rounded to bf16 (even for f32
+    x, ``:80``), bf16 weights into f32-accumulating dots (``:97``), each
+    ``g + bias`` rounded to bf16 (``:132``), SAME padding of the activated
+    value, the folded affine and the output in x's dtype.  The growth and
+    transition kernels of :func:`dense_block` do exactly that, so this is an
+    entry point (launches counted there, 5 a call), not a second kernel.
+    What the TPU design adds answers VMEM and the matrix unit's lane width
+    and has no counterpart here: the 4-row halos (``HALO``), the tile chooser
+    (``_choose_tile``), the 128-lane channel padding (``_round128``,
+    ``_pad_rows``) and the dx-tap packing (``pack_growth_kernel``).
+
+    The plain version, taken on the CPU, is :func:`dense_block_plain` on the
+    same fold; it keeps f32 features for f32 x, so it sits a bf16 rounding
+    class away from the kernel and from JAX there.
+    """
+    pack = fold_dense_block(block, x_nhwc.dtype, x_nhwc.device)
     out = dense_block(x_nhwc.permute(0, 3, 1, 2).contiguous(), pack)
     return out.permute(0, 2, 3, 1)

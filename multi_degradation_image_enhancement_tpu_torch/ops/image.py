@@ -1,14 +1,79 @@
 """Image helpers (counterpart of ``multi_degradation_image_enhancement_tpu/ops/image.py``).
 
-Batched NHWC float tensors.  Ported so far: :func:`quantize_u8`,
-:func:`conv3x3_fixed`, :func:`rgb_to_luma` and :func:`resize_bilinear_cv`; the
-reflect-padded tap sums and the nearest resize wait for the other
-degradations (ROADMAP.md, queue 1).
+Batched NHWC float tensors.  Borders follow OpenCV's ``BORDER_REFLECT_101``
+(``jnp.pad(mode="reflect")``: the edge pixel is not repeated), done here as
+an index gather, which keeps NHWC and allows any pad width.
+
+The tap sums are elementwise multiply-adds in the JAX package's order, one
+PyTorch op each: no convolution, so cuDNN's TF32 (on by default for f32
+convs) never rounds the operands, and the card computes the same bits as the
+CPU.  Per-sample tap weights are a ``[B, taps]`` tensor.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def true_div(a, b) -> torch.Tensor:
+    """``a / b`` correctly rounded on every device, either operand a Python
+    number.  PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal, and ``number / tensor`` is ``reciprocal(tensor) · number`` on
+    every device; both can move a later floor or round away from the CPU's
+    and JAX's result.  Here both operands are f32 tensors on one device."""
+    ref = a if isinstance(a, torch.Tensor) else b
+    def as_tensor(v):
+        return v if isinstance(v, torch.Tensor) else torch.tensor(v, dtype=torch.float32,
+                                                                  device=ref.device)
+    return torch.div(as_tensor(a), as_tensor(b))
+
+
+def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """Source indices of a BORDER_REFLECT_101 pad of ``pad`` on both sides of
+    an axis of length ``n`` (repeated reflection when ``pad >= n``)."""
+    i = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    j = torch.remainder(i, period)
+    return torch.where(j < n, j, period - j)
+
+
+def reflect_pad_hw(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Pad H and W of [B,H,W,C] with BORDER_REFLECT_101 semantics."""
+    if ph:
+        x = x.index_select(1, _reflect_index(x.shape[1], ph, x.device))
+    if pw:
+        x = x.index_select(2, _reflect_index(x.shape[2], pw, x.device))
+    return x
+
+
+def conv_taps_w(x: torch.Tensor, weights: torch.Tensor, radius: int) -> torch.Tensor:
+    """Horizontal tap-sum correlation: ``weights`` [B, 2·radius+1], tap ``i``
+    at offset ``i − radius`` (``cv2.filter2D`` convention)."""
+    w = x.shape[2]
+    xp = reflect_pad_hw(x, 0, radius)
+    weights = weights.to(device=x.device, dtype=x.dtype)
+    out = torch.zeros_like(x)
+    for i in range(2 * radius + 1):
+        out = out + weights[:, i, None, None, None] * xp[:, :, i:i + w]
+    return out
+
+
+def conv_taps_h(x: torch.Tensor, weights: torch.Tensor, radius: int) -> torch.Tensor:
+    """Vertical tap-sum correlation; see :func:`conv_taps_w`."""
+    h = x.shape[1]
+    xp = reflect_pad_hw(x, radius, 0)
+    weights = weights.to(device=x.device, dtype=x.dtype)
+    out = torch.zeros_like(x)
+    for i in range(2 * radius + 1):
+        out = out + weights[:, i, None, None, None] * xp[:, i:i + h]
+    return out
+
+
+def separable_blur(x: torch.Tensor, weights: torch.Tensor, radius: int) -> torch.Tensor:
+    """Separable symmetric blur: the same 1-D taps along W, then H."""
+    return conv_taps_h(conv_taps_w(x, weights, radius), weights, radius)
 
 
 def quantize_u8(x: torch.Tensor, mode: str = "floor") -> torch.Tensor:
@@ -73,3 +138,16 @@ def resize_bilinear_cv(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     wh = _linear_weights(h, out_h, x.device).to(x.dtype)
     ww = _linear_weights(w, out_w, x.device).to(x.dtype)
     return torch.einsum("bhwc,hi,wj->bijc", x, wh, ww)
+
+
+def resize_nearest_cv(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """cv2.INTER_NEAREST-style resize of [B,H,W,C]: source index
+    ``floor(dst · in/out)`` in f32, as the JAX package computes it."""
+    _, h, w, _ = x.shape
+
+    def index(n_out: int, n_in: int) -> torch.Tensor:
+        src = torch.floor(torch.arange(n_out, dtype=torch.float32)
+                          * torch.tensor(n_in / n_out, dtype=torch.float32))
+        return torch.clamp(src.long(), 0, n_in - 1).to(x.device)
+
+    return x.index_select(1, index(out_h, h)).index_select(2, index(out_w, w))

@@ -4,9 +4,15 @@
 Weighted multi-term losses with per-term paired/unpaired filtering and a
 per-component report.  Terms: ``mse``, ``l1``, ``charbonnier`` (eps 1e-3),
 ``ssim`` (1 − SSIM), ``channel_mean``, ``gradient_l1`` (L1 on Sobel
-gradients, optionally on luma), and the optional ``worst_case`` weighting.
-The ``vgg_perceptual`` and ``lpips`` terms are not ported yet (ROADMAP.md,
-queue 1 item 3): asking for them raises.  Images are NHWC.
+gradients, optionally on luma), ``vgg_perceptual`` (MSE of frozen VGG19
+features) and ``lpips`` (per-sample LPIPS-alex, masked mean), and the
+optional ``worst_case`` weighting.  Images are NHWC.
+
+The frozen networks of the perceptual terms are built once per pipeline, on
+the pipeline's device (``ops.perceptual.init_frozen_params``).  Callers run
+the loss outside any bf16 autocast, so these terms run in f32 as in JAX;
+gradients reach the outputs only (the networks do not require grad, and the
+targets' features are taken without a graph).
 """
 
 from __future__ import annotations
@@ -17,6 +23,11 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from multi_degradation_image_enhancement_tpu_torch.ops.image import conv3x3_fixed, rgb_to_luma
+from multi_degradation_image_enhancement_tpu_torch.ops.perceptual import (
+    VGG19Features,
+    frozen_lpips,
+    init_frozen_params,
+)
 from multi_degradation_image_enhancement_tpu_torch.ops.ssim import masked_mean
 from multi_degradation_image_enhancement_tpu_torch.ops.ssim import ssim as ssim_fn
 
@@ -103,22 +114,23 @@ def _require_targets(name: str, targets) -> None:
         raise ValueError(f"{name} loss requires targets (paired dataset).")
 
 
-def build_loss_pipeline(loss_cfg: Optional[Dict[str, Any]]) -> LossPipeline:
+def build_loss_pipeline(loss_cfg: Optional[Dict[str, Any]], device) -> LossPipeline:
     """A :class:`LossPipeline` from a config block (the reference's schema,
-    with a single MSE term when disabled or empty)."""
+    with a single MSE term when disabled or empty); the perceptual terms'
+    frozen networks live on ``device``."""
     if not loss_cfg or not loss_cfg.get("enabled", True):
         loss_cfg = {"terms": [{"name": "mse", "weight": 1.0, "args": {}}]}
     terms_cfg = loss_cfg.get("terms", []) or [{"name": "mse", "weight": 1.0, "args": {}}]
     built = [
         LossTerm(name=t["name"], weight=float(t.get("weight", 1.0)),
                  mode=t.get("mode", "paired") or "paired",
-                 fn=_make_term(t["name"], t.get("args", {}) or {}))
+                 fn=_make_term(t["name"], t.get("args", {}) or {}, torch.device(device)))
         for t in terms_cfg
     ]
     return LossPipeline(built, worst_case=loss_cfg.get("worst_case"))
 
 
-def _make_term(name: str, args: Dict[str, Any]) -> Callable[..., torch.Tensor]:
+def _make_term(name: str, args: Dict[str, Any], device: torch.device) -> Callable[..., torch.Tensor]:
     if name == "mse":
         def mse(outputs, targets=None, inputs=None, mask=None):
             _require_targets("mse", targets)
@@ -165,8 +177,23 @@ def _make_term(name: str, args: Dict[str, Any]) -> Callable[..., torch.Tensor]:
             return masked_mean(torch.abs(sobel_gradients(x) - sobel_gradients(y)), mask)
         return gradient_l1
 
-    if name in ("vgg_perceptual", "lpips"):
-        raise ValueError(
-            f"loss term {name!r} is not ported to PyTorch yet (ROADMAP.md, queue 1 item 3)"
-        )
+    if name == "vgg_perceptual":
+        vgg = init_frozen_params(VGG19Features(int(args.get("layers", 20))),
+                                 "vgg19_features.npz").to(device)
+
+        def vgg_perceptual(outputs, targets=None, inputs=None, mask=None):
+            _require_targets("vgg_perceptual", targets)
+            with torch.no_grad():
+                ft = vgg(targets)
+            return masked_mean(torch.square(vgg(outputs) - ft), mask)
+        return vgg_perceptual
+
+    if name == "lpips":
+        module = frozen_lpips(args, device)
+
+        def lpips(outputs, targets=None, inputs=None, mask=None):
+            _require_targets("lpips", targets)
+            return masked_mean(module(outputs, targets), mask)
+        return lpips
+
     raise ValueError(f"Unknown loss term: {name}")

@@ -15,7 +15,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from multi_degradation_image_enhancement_tpu_torch.ops.perceptual import LPIPS, init_frozen_params
+from multi_degradation_image_enhancement_tpu_torch.ops.perceptual import frozen_lpips
 from multi_degradation_image_enhancement_tpu_torch.ops.ssim import masked_mean
 from multi_degradation_image_enhancement_tpu_torch.ops.ssim import psnr as psnr_fn
 from multi_degradation_image_enhancement_tpu_torch.ops.ssim import ssim as ssim_fn
@@ -53,9 +53,9 @@ def _require_targets(name: str, targets) -> None:
         raise ValueError(f"{name} metric requires targets (paired dataset).")
 
 
-def build_metrics_pipeline(metrics_cfg: Optional[Dict[str, Any]], device=None) -> MetricsPipeline:
+def build_metrics_pipeline(metrics_cfg: Optional[Dict[str, Any]], device) -> MetricsPipeline:
     """A :class:`MetricsPipeline` from a ``metrics`` config block; LPIPS's
-    frozen network is placed on ``device`` (the CPU when None)."""
+    frozen network is placed on ``device`` (the engine's)."""
     if not metrics_cfg or not metrics_cfg.get("enabled", True):
         return MetricsPipeline([])
 
@@ -75,10 +75,7 @@ def build_metrics_pipeline(metrics_cfg: Optional[Dict[str, Any]], device=None) -
                 return ssim_fn(outputs, targets, mask=mask)
             metrics.append(MetricItem("ssim", mode, ssim))
         elif name == "lpips":
-            net = args.get("net", args.get("net_type", "alex"))
-            if net not in ("alex", "vgg", "squeeze"):
-                raise ValueError(f"lpips net_type '{net}' not supported (alex/vgg/squeeze).")
-            module = init_frozen_params(LPIPS(net_type=net), f"lpips_{net}.npz").to(device or "cpu")
+            module = frozen_lpips(args, device)
 
             def lpips(outputs, targets=None, inputs=None, mask=None, _m=module):
                 _require_targets("lpips", targets)

@@ -1,5 +1,10 @@
-"""LPIPS with the AlexNet backbone, and its frozen weights (counterpart of
-``multi_degradation_image_enhancement_tpu/ops/perceptual.py``).
+"""Frozen perceptual feature networks (counterpart of
+``multi_degradation_image_enhancement_tpu/ops/perceptual.py``): the VGG19
+features of the ``vgg_perceptual`` loss, and LPIPS with the AlexNet backbone.
+
+:class:`VGG19Features` is the first ``num_layers`` ops (default 20) of
+torchvision's ``vgg19().features`` in f32, convs named ``conv_{i}`` by their
+``features`` index (``perceptual.py:38-69``); NHWC in and out, NCHW inside.
 
 :class:`LPIPS` follows the JAX module (``perceptual.py:215-262``), itself
 torchmetrics' ``LearnedPerceptualImagePatchSimilarity`` with ``net_type
@@ -12,12 +17,14 @@ Images are NHWC, as in the JAX package; the backbone runs NCHW.
 
 Weights: :func:`init_frozen_params` loads ``$MDIE_WEIGHTS_DIR/<npz>``,
 whose keys are the JAX package's ``/``-joined Flax paths (``net/conv_0/kernel``
-HWIO, ``net/conv_0/bias``, ``lin_0`` ``[C, 1]``), mapped to torch layouts;
-without the file it keeps seeded, frozen random weights (status
-``"random_frozen"``, one warning).  Those random draws are the port's own
-(JAX's threefry cannot be reproduced in torch), so the two packages' LPIPS
-agree only on loaded or carried-over weights.  Nothing is downloaded.  The
-VGG and SqueezeNet backbones are not ported (ROADMAP.md, queue 1).
+HWIO, ``net/conv_0/bias``, ``lin_0`` ``[C, 1]``; ``conv_{i}/kernel`` with no
+``net/`` for ``vgg19_features.npz``), mapped to torch layouts; without the
+file it keeps seeded, frozen random weights (status ``"random_frozen"``, one
+warning).  Those random draws are the port's own (JAX's threefry cannot be
+reproduced in torch), so the two packages agree only on loaded or
+carried-over weights (``utils.jax_port.load_feature_net``).  Nothing
+is downloaded.  The VGG16 and SqueezeNet LPIPS backbones are not ported
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -35,9 +42,46 @@ from torch import nn
 
 LPIPS_CHANNELS: Dict[str, Tuple[int, ...]] = {"alex": (64, 192, 384, 256, 256)}
 
+# torchvision vgg19.features: index -> (kind, out_channels)
+_VGG19_LAYOUT: Tuple[Tuple[str, int], ...] = (
+    ("conv", 64), ("relu", 0), ("conv", 64), ("relu", 0), ("pool", 0),
+    ("conv", 128), ("relu", 0), ("conv", 128), ("relu", 0), ("pool", 0),
+    ("conv", 256), ("relu", 0), ("conv", 256), ("relu", 0), ("conv", 256),
+    ("relu", 0), ("conv", 256), ("relu", 0), ("pool", 0),
+    ("conv", 512), ("relu", 0), ("conv", 512), ("relu", 0), ("conv", 512),
+    ("relu", 0), ("conv", 512), ("relu", 0), ("pool", 0),
+    ("conv", 512), ("relu", 0), ("conv", 512), ("relu", 0), ("conv", 512),
+    ("relu", 0), ("conv", 512), ("relu", 0), ("pool", 0),
+)
+
 # LPIPS input normalisation constants (shift/scale on [-1, 1] inputs).
 _LPIPS_SHIFT = (-0.030, -0.088, -0.188)
 _LPIPS_SCALE = (0.458, 0.448, 0.450)
+
+
+class VGG19Features(nn.Module):
+    """The first ``num_layers`` ops of torchvision ``vgg19().features``:
+    3×3 SAME convs, ReLUs and 2×2 max pools; NHWC in, NHWC out."""
+
+    def __init__(self, num_layers: int = 20):
+        super().__init__()
+        self.layout = _VGG19_LAYOUT[:num_layers]
+        c_in = 3
+        for i, (kind, ch) in enumerate(self.layout):
+            if kind == "conv":
+                setattr(self, f"conv_{i}", nn.Conv2d(c_in, ch, 3, padding=1))
+                c_in = ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        for i, (kind, _) in enumerate(self.layout):
+            if kind == "conv":
+                x = getattr(self, f"conv_{i}")(x)
+            elif kind == "relu":
+                x = torch.relu(x)
+            else:
+                x = F.max_pool2d(x, 2, 2)
+        return x.permute(0, 2, 3, 1)
 
 
 class AlexNetFeatures(nn.Module):
@@ -170,3 +214,12 @@ def init_frozen_params(module: nn.Module, npz_name: str, seed: int = 42) -> nn.M
             "torchvision weights are available for exact perceptual parity."
         )
     return module.eval().requires_grad_(False)
+
+
+def frozen_lpips(args: Dict, device) -> LPIPS:
+    """The frozen LPIPS of a loss term's or metric's ``args`` (``net`` or
+    ``net_type``, default ``"alex"``) on ``device``."""
+    net = args.get("net", args.get("net_type", "alex"))
+    if net not in ("alex", "vgg", "squeeze"):
+        raise ValueError(f"lpips net_type '{net}' not supported (alex/vgg/squeeze).")
+    return init_frozen_params(LPIPS(net_type=net), f"lpips_{net}.npz").to(device)

@@ -8,8 +8,8 @@
 The same ``-c/-p`` contract and config files as the JAX runner (read as
 files; nothing of the JAX package is imported).  ``-p train`` trains and
 writes the checkpoint; ``-p test`` scores it.  The phase's block picks the
-device (``train.device`` / ``test.device``): ``"cuda"``/``"tpu"`` → CUDA
-(raises without a card), ``"cpu"`` → CPU.
+device (``train.device`` / ``test.device``): missing, null, ``"cuda"`` or
+``"tpu"`` → CUDA (raises without a card), ``"cpu"`` → CPU.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def build_session(config):
     np.random.seed(42)
     torch.manual_seed(42)
     phase_cfg = config[phase]
-    device = resolve_device(phase_cfg["device"] or "cpu")
+    device = resolve_device(phase_cfg["device"])
     logger = ExperimentLogger(config)
     network = define_network(config["model"]["networks"][0])
     dataset = define_dataset(phase_cfg["dataset"])

@@ -17,14 +17,21 @@ Layout conversions (Flax → PyTorch):
 
 :func:`state_dict_to_flax` is the inverse map (NumPy only), so tests can hold
 parameters and statistics after a train step against the JAX package's.
+
+:func:`load_feature_net` carries a frozen feature network across (the JAX
+package's ``VGG19Features`` or ``LPIPS`` parameter tree → the port's module),
+with the key map of the npz loader (``ops.perceptual._flax_to_torch``).
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+
+from multi_degradation_image_enhancement_tpu_torch.ops.perceptual import _flax_to_torch
 
 
 def _dense_block_entries(flax_prefix: Tuple[str, ...], torch_prefix: str):
@@ -173,3 +180,30 @@ def state_dict_to_flax(sd: Dict[str, Any], entries=None) -> Dict[str, Any]:
             raise ValueError(f"unknown mapping kind {kind!r}")
         _set(params, path, {k: np.ascontiguousarray(v) for k, v in leaf.items()})
     return {"params": params, "batch_stats": stats}
+
+
+@torch.no_grad()
+def load_feature_net(module: torch.nn.Module, params: Mapping) -> torch.nn.Module:
+    """Copy a Flax ``params`` tree of NumPy arrays (``VGG19Features``:
+    ``conv_{i}/kernel``; ``LPIPS``: ``net/conv_{i}/…``, ``lin_{k}``) into
+    ``module``'s parameters; every parameter must be set, shapes must agree."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            key = f"{path}/{k}" if path else k
+            if isinstance(v, Mapping):
+                walk(v, key)
+            else:
+                name, arr = _flax_to_torch(key, np.asarray(v))
+                flat[name] = arr
+
+    walk(params, "")
+    own = dict(module.named_parameters())
+    if set(flat) != set(own):
+        raise ValueError(f"parameter names differ: {sorted(set(flat) ^ set(own))}")
+    for name, arr in flat.items():
+        if tuple(arr.shape) != tuple(own[name].shape):
+            raise ValueError(f"shape mismatch for {name}: {arr.shape} vs {tuple(own[name].shape)}")
+        own[name].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+    return module

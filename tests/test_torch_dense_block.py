@@ -155,3 +155,36 @@ def test_fused_dense_block_cm_matches_jax_row_tiled(monkeypatch, c_in):
         err = np.abs(got.float().numpy() - want)
         assert err.max() <= 5e-2 and err.mean() <= 5e-3, (dt, err.max(), err.mean())
     assert dense_block.launches == n0  # the CPU takes the plain version
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c_in,h,w", [(64, 32, 48), (3, 16, 24), (128, 16, 24)])
+def test_fused_dense_block_matches_jax_row_major_kernel(c_in, h, w, dtype):
+    """``fused_dense_block`` (#10's entry: NHWC, from the module's eval
+    statistics, the affine folded in x's dtype) against the JAX entry of the
+    row-major kernel run in interpret mode, at the shapes of
+    tests/test_pallas_kernels.py:15, in both input dtypes.  bf16-class bar
+    (test_pallas_kernels.py:30-31): the TPU kernel rounds the input and every
+    feature to bf16 even for f32 x; the port's plain version keeps f32
+    features for f32 x."""
+    from multi_degradation_image_enhancement_tpu.ops.pallas.dense_block import (
+        fused_dense_block as jax_fused_dense_block,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        fused_dense_block,
+    )
+
+    _, variables, x = _jax_block(c_in, h, w, seed=8)
+    want = jax_fused_dense_block(jnp.asarray(x, getattr(jnp, dtype)), variables["params"],
+                                 variables["batch_stats"], interpret=True)
+    assert want.dtype == getattr(jnp, dtype)
+    block = _port_block(variables, c_in)
+    n0 = dense_block.launches
+    with torch.no_grad():
+        got = fused_dense_block(torch.from_numpy(x).to(getattr(torch, dtype)), block)
+    assert got.shape == (2, h, w, c_in) and got.dtype == getattr(torch, dtype)
+    assert dense_block.launches == n0  # the CPU takes the plain version
+    err = np.abs(got.float().numpy() - np.asarray(want, np.float32))
+    assert err.max() <= 5e-2 and err.mean() <= 5e-3, (err.max(), err.mean())
+    with pytest.raises(RuntimeError, match="inference only"):
+        fused_dense_block(torch.from_numpy(x).requires_grad_(True), block)

@@ -117,12 +117,12 @@ def test_metrics_pipeline_modes_and_errors():
     """Items are a list: the same name under both modes survives, and the
     mode filter picks per call; paired metrics need targets."""
     cfg = {"items": [{"name": "psnr"}, {"name": "psnr", "mode": "unpaired"}]}
-    pipe = build_metrics_pipeline(cfg)
+    pipe = build_metrics_pipeline(cfg, "cpu")
     assert len(pipe.metrics) == 2
     x, y = _images(3, b=2, h=16, w=16)
     assert list(pipe(torch.from_numpy(x), torch.from_numpy(y))) == ["psnr"]
     with pytest.raises(ValueError, match="requires targets"):
         pipe(torch.from_numpy(x), None, is_paired=False)
-    assert build_metrics_pipeline({"enabled": False, "items": cfg["items"]}).metrics == []
+    assert build_metrics_pipeline({"enabled": False, "items": cfg["items"]}, "cpu").metrics == []
     with pytest.raises(ValueError, match="Unknown metric"):
-        build_metrics_pipeline({"items": [{"name": "fid"}]})
+        build_metrics_pipeline({"items": [{"name": "fid"}]}, "cpu")

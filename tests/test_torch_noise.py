@@ -151,9 +151,8 @@ def test_degrade_batch_domain_and_unported_names():
     torch.testing.assert_close(clean, x / 255.0)
     levels = deg * 255.0
     assert (levels - torch.round(levels)).abs().max() < 1e-4  # u8 lattice
-    for name in tdeg.DEGRADATIONS:
-        if name != "noise":
-            with pytest.raises(ValueError, match="ROADMAP"):
-                tdeg.apply_degradation(name, x, torch.Generator())
+    for name in tdeg.DEGRADATIONS:  # every family is ported now; each lands on the u8 lattice
+        out = tdeg.apply_degradation(name, x, torch.Generator().manual_seed(2))
+        assert out.shape == x.shape and torch.equal(out, torch.clamp(torch.round(out), 0, 255))
     with pytest.raises(ValueError, match="Unknown degradation"):
         tdeg.sample_params("snow", torch.Generator(), 2)

@@ -53,26 +53,33 @@ assert out.shape == (2, 16, 16, 3) and out.dtype == torch.float32
 assert bool(torch.isfinite(out).all()) and 0.0 <= float(out.min()) and float(out.max()) <= 1.0
 from multi_degradation_image_enhancement_tpu_torch import run
 from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
-run.main(load_config(sys.argv[2], phase="train"))
-run.main(load_config(sys.argv[2], phase="test"))
+for path in sys.argv[2:]:
+    run.main(load_config(path, phase="train"))
+    run.main(load_config(path, phase="test"))
 print("OK", len(mods))
 """
 
 
 def test_port_imports_and_runs_with_jax_blocked(tmp_path):
     """Every module imports, a serving step runs, and the CPU CLI trains and
-    scores (the tiny config of tests/torch_train_cli.py) with JAX blocked."""
+    scores the tiny configs of tests/torch_train_cli.py with JAX blocked:
+    noise_synthetic, and jpeg_synthetic (the jpeg degradation, the VGG and
+    LPIPS loss terms)."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    (tmp_path / "jpeg").mkdir()
+    configs = [write_tiny_config(tmp_path), write_tiny_config(tmp_path / "jpeg", "jpeg_synthetic")]
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT), str(write_tiny_config(tmp_path))],
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT), *map(str, configs)],
         capture_output=True, text=True, timeout=300, cwd=ROOT, env=env,
     )
     assert proc.returncode == 0, proc.stderr
     last = proc.stdout.splitlines()[-1].split()
     assert last[0] == "OK"
-    assert int(last[1]) >= 28  # every module of the package was imported
+    assert int(last[1]) >= 33  # every module of the package was imported
     check_tiny_run(tmp_path)
     check_tiny_test_run(tmp_path)
+    check_tiny_run(tmp_path / "jpeg", "jpeg_synthetic")
+    check_tiny_test_run(tmp_path / "jpeg", "jpeg_synthetic")
 
 
 def test_no_jax_import_in_port_sources():

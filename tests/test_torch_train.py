@@ -143,7 +143,7 @@ def steps(setup):
         model = _port_model(variables)
         model.fused_dense = fused
         state = TrainState.create(model, 1e-3)
-        loss = make_train_step(build_loss_pipeline(_loss_cfg()), "fp32")(
+        loss = make_train_step(build_loss_pipeline(_loss_cfg(), "cpu"), "fp32")(
             state, torch.from_numpy(inputs), torch.from_numpy(targets), _port_masks(keep))
         assert state.step == 1
         # Adam's first moment after one step is 0.1·grad on both sides
@@ -223,7 +223,7 @@ def test_loss_pipeline_matches_jax():
     out[0, 0, 0, 0] = out[1, 5, 5, 1] = out.max()  # a tie at the maximum of the data range
     mask = np.array([1.0, 0.0], np.float32)
     jpipe = jax_losses(_loss_cfg())
-    pipe = build_loss_pipeline(_loss_cfg())
+    pipe = build_loss_pipeline(_loss_cfg(), "cpu")
     for m in (None, mask):
         jm = None if m is None else jnp.asarray(m)
         want = jpipe(jnp.asarray(out), jnp.asarray(tgt), mask=jm)
@@ -246,7 +246,7 @@ def test_worst_case_selection_with_ties_matches_jax():
         out[i] = v
     mask = np.array([1, 1, 1, 1, 1, 0], np.float32)
     want = jax_losses(cfg)(jnp.asarray(out), jnp.asarray(tgt), mask=jnp.asarray(mask), training=True)
-    got = build_loss_pipeline(cfg)(torch.from_numpy(out), torch.from_numpy(tgt),
+    got = build_loss_pipeline(cfg, "cpu")(torch.from_numpy(out), torch.from_numpy(tgt),
                                    mask=torch.from_numpy(mask), training=True)
     for k in want:
         assert abs(float(got[k]) - float(want[k])) <= 1e-6, k
