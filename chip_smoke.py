@@ -59,11 +59,25 @@ line per phase, and exits non-zero at the first failure:
     over three of its steps: device time, busy share, the ten costliest
     kernels; both with TF32 at PyTorch's defaults, as the CLI trains;
 22. per kernel, the least time the card could take for the work timed
-    (``bound_ms``: FLOPs over 989 TFLOP/s bf16, or 67 TFLOP/s f32 for
-    elementwise work, against bytes over 3.35 TB/s, the larger) and, where
-    one PyTorch call computes the same function, that call's time.
+    (``bound_ms``: FLOPs over 989 TFLOP/s bf16, 1979 TOP/s int8, or 67
+    TFLOP/s f32 for elementwise work, against bytes over 3.35 TB/s, the
+    larger) and, where one PyTorch call computes the same function, that
+    call's time;
+23. the probe kernels #11-#14 (``ops.cuda.probe_matmul``,
+    ``ops.cuda.probe_transpose``) at the probes' shapes vs their plain
+    versions, then the two probe scripts (``benchmarks/exp_int8_reprobe.py``,
+    ``exp_io_transpose.py``) with the launch counters reset: kernel, plain
+    and library ms;
+24. the routed serving pipeline: nine full-width experts, a full-width
+    ResNet-18 classifier and 64 degraded PNGs at 256x384 written to
+    ``build/chip_smoke_pipeline/``; the CLI ``run_pipeline`` in top1 and
+    severity-ordered sequential mode (B=32), in-process with the counts
+    reset around it and as a subprocess; its PNGs against an in-process
+    ``FullPipeline`` (1 LSB), the DenseBlock launches per expert forward,
+    the three top1 cases (routed, clean, dropped), and the step's times and
+    drop rate with each image routed by its own degradation.
 
-Phases 5, 12-14 and 17 use a CDAN whose BatchNorm statistics keep the whole path
+Phases 5, 12-14, 17 and 24 use CDANs whose BatchNorm statistics keep the whole path
 live (``live_cdan``): with ``init_cdan``'s statistics the decoder's ReLUs
 pass nothing but the global residual.
 
@@ -94,8 +108,8 @@ CONFIG_DIR = Path("multi_degradation_image_enhancement_tpu") / "config"
 CONFIG = CONFIG_DIR / "noise_synthetic.json"
 # the configs phase 20 trains and scores: every new loss term, transform and the POST stage
 CLI_TASKS = ("jpeg_synthetic", "low_light_synthetic", "pixelation_hard_synthetic")
-# H100 SXM published peaks (dense): bf16 tensor cores, f32 outside them, HBM3
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# H100 SXM published peaks (dense): bf16 and int8 tensor cores, f32 outside them, HBM3
+PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # (block, c_in, (H, W)) of the four DenseBlocks of a B=16·256×384 train step;
 # layer i of a block reads c_in + 16·i channels.
@@ -104,6 +118,8 @@ GT_BLOCKS = [("dense1", 64, (128, 192)), ("dense2", 128, (64, 96)),
 BENCH_STEPS, EVAL_STEPS = 5, 3
 TEST_IMAGES = 64  # the -p test phases score 64 of the test block's 128 images
 PHOTO_HW, PHOTO_IMAGES = (480, 640), 32  # a size where the JAX package takes _run_cm (#3)
+PROBE_ITERS = 20  # timed calls of each route in the probe scripts (phase 23)
+PIPE_IMAGES, PIPE_BATCH = 64, 32  # the routed pipeline's directory and batch (phase 24)
 # (layer, c_in, c_out, (H, W)) of the CM forward's 3x3 convs at B=128·256².
 CM_CONVS = [("conv2", 64, 128, (128, 128)), ("conv3", 128, 256, (64, 64)),
             ("conv4", 256, 512, (32, 32)), ("de1", 512, 256, (32, 32)),
@@ -151,19 +167,11 @@ def require(ok: bool, what: str) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events around ``reps`` calls."""
-    import torch
+    """Mean device time of ``fn()`` in ms, by CUDA events around ``reps`` calls
+    (the port's benchmarks' timer)."""
+    from multi_degradation_image_enhancement_tpu_torch.benchmarks import cuda_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return timed(fn, reps, warmup)
 
 
 def phase_device(torch):
@@ -1184,6 +1192,24 @@ def conv_work(shapes, pool=False):
     return flops, nbytes
 
 
+def probe_work() -> dict:
+    """(FLOPs, bytes, peak) of the probe kernels at the probes' shapes: the
+    GEMM reads a and b and writes o; the transposes and products read x (and
+    M) and write o."""
+    from multi_degradation_image_enhancement_tpu_torch.benchmarks import (
+        exp_int8_reprobe as mm, exp_io_transpose as io,
+    )
+
+    flops = 2 * mm.M * mm.K * mm.N * mm.BLOCKS
+    operands = mm.BLOCKS * (mm.M * mm.K + mm.K * mm.N)
+    outs = mm.BLOCKS * mm.M * mm.N
+    x_bytes = io.B * io.P * io.C * 2
+    product = (2 * io.B * io.P * io.C * io.C, 2 * x_bytes + io.C * io.C * 2, "bf16")
+    return {"probe_matmul_bf16": (flops, operands * 2 + outs * 2, "bf16"),
+            "probe_matmul_int8": (flops, operands + outs * 4, "int8"),
+            "m_dot_xt": product, "xt_dot_m": product, "transpose": (0, 2 * x_bytes, "bf16")}
+
+
 def library_conv_ms(torch, model):
     """One PyTorch call per CM conv shape for #8's function: bf16
     ``F.conv2d`` (cuDNN) + ReLU on the same inputs and folded weights."""
@@ -1195,6 +1221,321 @@ def library_conv_ms(torch, model):
         b16 = pack.bias.to(torch.bfloat16)
         total += cuda_ms(lambda: torch.relu(F.conv2d(x, pack.w_bf16, b16, padding=1)), 10)
     return total
+
+
+def phase_probes(torch, smi):
+    """Phase 23: the probe kernels #11-#14 at the probes' shapes, each held
+    against its plain version: the int8 GEMM and the transposes (``M = I``
+    for #12/#13) bit for bit; #12/#13 with a seeded random M (U(-1, 1)) within
+    one bf16 ulp of the largest output (2**-7 * max|ref|); the bf16 GEMM on
+    positive operands within 2 bf16 ulp relative (|d| <= 2**-6 * |ref|).
+    Then the main path: both probe scripts with every count reset before.
+    Returns per kernel its error, plain ms, kernel ms, library ms, launches."""
+    from multi_degradation_image_enhancement_tpu_torch.benchmarks import (
+        exp_int8_reprobe, exp_io_transpose,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_matmul import (
+        probe_matmul, probe_matmul_plain,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_transpose import (
+        m_dot_xt, m_dot_xt_plain, transpose, transpose_plain, xt_dot_m, xt_dot_m_plain,
+    )
+
+    rec = {}
+    for label, dtype in exp_int8_reprobe.DTYPES.items():
+        a, b = exp_int8_reprobe.make_operands(dtype)
+        got, ref = probe_matmul(a, b), probe_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        d = (got.float() - ref.float()).abs()
+        name = "probe_matmul_int8" if dtype == torch.int8 else "probe_matmul_bf16"
+        if dtype == torch.int8:
+            detail = f"exact {torch.equal(got, ref)}"
+            require(torch.equal(got, ref), "int8 GEMM equals its plain version")
+        else:
+            rel = (d / ref.float().abs()).max().item()
+            detail = f"max rel {rel:.3e} (limit 2**-6 = {2.0**-6:.3e}, 2 bf16 ulp)"
+            require(bool((d <= 2.0**-6 * ref.float().abs()).all()), "bf16 GEMM within 2 ulp")
+        rec[name] = {"max_abs_err": d.max().item(), "plain_ms": cuda_ms(
+            lambda: probe_matmul_plain(a, b), 3)}
+        say("probes", f"#11 {label} {tuple(a.shape)} @ {tuple(b.shape)}: kernel vs plain max abs "
+            f"{d.max().item():.3e}, {detail}")
+        del a, b, got, ref, d
+    g = torch.Generator(device="cuda").manual_seed(11)
+    a, b = (torch.randint(-128, 128, s, generator=g, device="cuda", dtype=torch.int8)
+            for s in ((3, 256, 96), (3, 96, 384)))
+    require(torch.equal(probe_matmul(a, b), probe_matmul_plain(a, b)),
+            "int8 GEMM equals its plain version at 3 x [256,96] @ [96,384]")
+    say("probes", "#11 int8 (3, 256, 96) @ (3, 96, 384): exact")
+
+    x, eye = exp_io_transpose.probe_inputs()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    m_rand = (torch.rand((64, 64), generator=g, device="cuda") * 2 - 1).to(torch.bfloat16)
+    xr = torch.rand(x.shape, generator=g, device="cuda").to(torch.bfloat16)
+    for name, kern, plain, lib, xi, xm in (
+            ("m_dot_xt", m_dot_xt, m_dot_xt_plain, lambda v, m: torch.matmul(m, v.transpose(1, 2)),
+             x, xr),
+            ("xt_dot_m", xt_dot_m, xt_dot_m_plain, lambda v, m: torch.matmul(v.transpose(1, 2), m),
+             x.transpose(1, 2).contiguous(), xr.transpose(1, 2).contiguous())):
+        got = kern(xi, eye)
+        require(torch.equal(got, plain(xi, eye)) and torch.equal(got, xi.transpose(1, 2)),
+                f"{name} with M = I is the transpose, bit for bit")
+        got, ref = kern(xm, m_rand).float(), plain(xm, m_rand).float()
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        say("probes", f"{name} {tuple(xi.shape)} bf16: M = I bit-exact; random M max abs {err:.3e} "
+            f"(limit 2**-7 * {scale:.3f} = {2.0**-7 * scale:.3e})")
+        require(err <= 2.0**-7 * scale, f"{name} with a random M vs plain")
+        rec[name] = {"max_abs_err": err, "plain_ms": cuda_ms(lambda: plain(xi, eye), 5),
+                     "library_ms": cuda_ms(lambda: lib(xi, eye), 20)}
+        del got, ref
+    require(torch.equal(transpose(x), transpose_plain(x)), "transpose bit for bit")
+    say("probes", f"transpose {tuple(x.shape)} bf16: bit-exact")
+    rec["transpose"] = {"max_abs_err": 0.0, "plain_ms": cuda_ms(lambda: transpose_plain(x), 20)}
+    del xr
+    torch.cuda.synchronize()
+
+    probe_matmul.launches = m_dot_xt.launches = xt_dot_m.launches = transpose.launches = 0
+    mm = exp_int8_reprobe.run(PROBE_ITERS)
+    io = exp_io_transpose.run(PROBE_ITERS)
+    torch.cuda.synchronize()
+    launches = {"probe_matmul": probe_matmul.launches, "m_dot_xt": m_dot_xt.launches,
+                "xt_dot_m": xt_dot_m.launches, "transpose": transpose.launches}
+    say("probes", f"[{smi}] probe scripts' launches {launches}")
+    require(all(n > 0 for n in launches.values()), "each probe kernel ran in the probe scripts")
+    require(sum(r["launches"] for r in mm.values()) == launches["probe_matmul"],
+            "the GEMM's launches are the two type sets'")
+    for route in ("rhsT identity-dot", "lhsT identity-dot", "in-kernel .T"):
+        require(io[route]["ok"], f"probe check {route}")
+    for label, name in (("bf16->f32", "probe_matmul_bf16"), ("int8->i32", "probe_matmul_int8")):
+        rec[name].update(ms=mm[label]["kernel_ms"], library_ms=mm[label]["library_ms"],
+                         launches=mm[label]["launches"])
+    for route, name in (("rhsT identity-dot", "m_dot_xt"), ("lhsT identity-dot", "xt_dot_m"),
+                        ("in-kernel .T", "transpose")):
+        rec[name].update(ms=io[route]["ms"], launches=launches[name])
+    rec["transpose"]["library_ms"] = io["library transpose"]["ms"]
+    return rec
+
+
+def _pipeline_artifacts(torch, work: Path) -> dict:
+    """Phase 24's files: nine full-width CDAN experts (``live_cdan``
+    statistics, seeds 100-108, so the experts answer differently), 64 PNGs at
+    256x384 (procedural clean images, image i put through degradation
+    i mod 9 on the CPU), and a full-width classifier whose class head is set
+    from its own bf16 features of these images: class c's logit is 3 z_c
+    + a_c, z_c a standardised random projection of the feature, a_c placing
+    the threshold 0.5 at z_c's 60th percentile for noise and its 93rd for
+    the others.  So about two images in five clear noise (more than top1's
+    capacity of 8 a batch of 32: drops), and the rest mostly clear nothing
+    (clean passthrough)."""
+    from PIL import Image
+
+    from multi_degradation_image_enhancement_tpu_torch.classification.model import (
+        IMAGENET_MEAN, IMAGENET_STD, init_classifier, serving_classifier,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.classification.train import save_checkpoint
+    from multi_degradation_image_enhancement_tpu_torch.data.dataset import _list_images
+    from multi_degradation_image_enhancement_tpu_torch.data.streaming import decode_chunk
+    from multi_degradation_image_enhancement_tpu_torch.data.synthetic import _procedural_clean
+    from multi_degradation_image_enhancement_tpu_torch.engine.checkpoint import save_weights
+    from multi_degradation_image_enhancement_tpu_torch.ops import degradations as deg
+    from multi_degradation_image_enhancement_tpu_torch.run_pipeline import to_01
+
+    wdir, img_dir = work / "weights", work / "images"
+    wdir.mkdir(parents=True)
+    img_dir.mkdir()
+    names = list(deg.DEGRADATIONS)
+    for i, name in enumerate(names):
+        save_weights(str(wdir / f"CDAN_{name}.pt"), live_cdan(torch, 100 + i))
+    clean = torch.from_numpy(_procedural_clean(PIPE_IMAGES, *EVAL_HW, seed=24)).float()
+    for i, name in enumerate(names):
+        idx = list(range(i, PIPE_IMAGES, len(names)))
+        gen = torch.Generator().manual_seed(200 + i)
+        params = deg.sample_params(name, gen, len(idx))
+        if name == "noise":
+            params["normal"] = torch.randn((len(idx), *EVAL_HW, 3), generator=gen)
+        out = deg.apply_with_params(name, clean[idx], params).clamp(0, 255).round().to(torch.uint8)
+        for j, k in enumerate(idx):
+            Image.fromarray(out[j].numpy()).save(img_dir / f"img{k:02d}_{name}.png")
+
+    clf = init_classifier(torch.Generator().manual_seed(25), len(names), pretrained_backbone=False)
+    serv = serving_classifier(clf, torch.bfloat16, "cuda")
+    files = _list_images(str(img_dir))
+    mean = torch.tensor(IMAGENET_MEAN, device="cuda")
+    std = torch.tensor(IMAGENET_STD, device="cuda")
+    feats = []
+    with torch.inference_mode():
+        for i in range(0, len(files), PIPE_BATCH):
+            u8 = decode_chunk([str(img_dir / f) for f in files[i:i + PIPE_BATCH]], EVAL_HW)
+            feats.append(serv.backbone((to_01(u8, "cuda") - mean) / std).float().cpu())
+    feats = torch.cat(feats)
+    w = torch.randn((len(names), 512), generator=torch.Generator().manual_seed(26))
+    u = feats @ w.T
+    mu, sd = u.mean(dim=0), u.std(dim=0)
+    z = (u - mu) / sd
+    q = torch.tensor([0.60 if n == "noise" else 0.93 for n in names])
+    a = -3.0 * torch.stack([torch.quantile(z[:, c], q[c]) for c in range(len(names))])
+    with torch.no_grad():
+        clf.head_cls.weight.copy_(3.0 * w / sd[:, None])
+        clf.head_cls.bias.copy_(a - 3.0 * mu / sd)
+    clf_path = work / "classifier.pt"
+    save_checkpoint(str(clf_path), clf, {"classes": names})
+    (work / "thresholds_val.json").write_text(json.dumps({"thresholds": dict.fromkeys(names, 0.5)}))
+    say("pipeline", f"wrote 9 experts, {len(files)} PNGs {EVAL_HW[0]}x{EVAL_HW[1]} and the "
+        f"classifier; feature projections: std {sd.min().item():.3e}..{sd.max().item():.3e}")
+    labels = [names[int(f[3:5]) % len(names)] for f in files]  # img{k:02d}_<name>.png
+    return {"weights": wdir, "images": img_dir, "classifier": clf_path, "files": files,
+            "labels": labels}
+
+
+def phase_pipeline(torch, smi):
+    """Phase 24: the CLI ``run_pipeline`` restores the 64 PNGs on the card
+    (B=32, nine experts, bf16), in top1 and in severity-ordered sequential
+    mode.  Each mode runs it in-process through ``run_pipeline.main`` with
+    the DenseBlock and expert-forward counts reset just before (20 launches
+    per expert forward that ran, and the forwards those its own probabilities
+    call for), and as a subprocess (``python -m``); both runs' PNGs within 1
+    LSB of an in-process ``FullPipeline`` on the same decoded batches, the
+    same route for each image, top1 showing routed, clean and dropped images.
+    Then the step timed as ``benchmarks/bench_pipeline.py`` times it
+    (classifier, bank, whole step, img/s) on the first batch, routed by the
+    images' own labels: each image to the expert of the degradation it
+    carries (nine forwards a batch, no drop); the class head above serves
+    only the route checks."""
+    import io
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from multi_degradation_image_enhancement_tpu_torch import run_pipeline
+    from multi_degradation_image_enhancement_tpu_torch.benchmarks.bench_pipeline import (
+        expert_forwards, time_step,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.data.streaming import decode_chunk
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
+    from multi_degradation_image_enhancement_tpu_torch.pipeline import CLEAN, DROPPED
+    from multi_degradation_image_enhancement_tpu_torch.run_pipeline import (
+        build_full_pipeline, to_01, to_u8,
+    )
+
+    work = Path("build") / "chip_smoke_pipeline"
+    shutil.rmtree(work, ignore_errors=True)
+    art = _pipeline_artifacts(torch, work)
+    files = art["files"]
+    batches = [decode_chunk([str(art["images"] / f) for f in files[i:i + PIPE_BATCH]], EVAL_HW)
+               for i in range(0, len(files), PIPE_BATCH)]
+    xs = [to_01(u8, "cuda") for u8 in batches]
+    ran = [0]
+    load_expert_bank = run_pipeline.load_expert_bank
+
+    def load_counted(*args):
+        names, forwards = load_expert_bank(*args)
+
+        def counted(forward):
+            def run(x):
+                ran[0] += 1
+                return forward(x)
+            return run
+        return names, [counted(f) for f in forwards]
+
+    records = {}
+    for mode, ordering in (("top1", "fixed"), ("sequential", "severity")):
+        def argv(out):
+            return ["--images", str(art["images"]), "--out", str(out), "--classifier",
+                    str(art["classifier"]), "--weights-dir", str(art["weights"]), "--batch",
+                    str(PIPE_BATCH), "--input-hw", str(EVAL_HW[0]), str(EVAL_HW[1]),
+                    "--save-probs", "--mode", mode, "--ordering", ordering]
+
+        # The main path: the CLI in-process, every count reset just before it.
+        out_main = work / f"main_{mode}"
+        run_pipeline.load_expert_bank = load_counted
+        log = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            dense_block.launches, ran[0] = 0, 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                run_pipeline.main(argv(out_main))
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            launches, forwards = dense_block.launches, ran[0]
+        finally:
+            run_pipeline.load_expert_bank = load_expert_bank
+        out = work / f"out_{mode}"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PKG}.run_pipeline", *argv(out)],
+                              capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"run_pipeline {mode} exits 0:\n{proc.stdout[-1500:]}\n"
+                f"{proc.stderr[-3000:]}")
+
+        pipe = build_full_pipeline(str(art["classifier"]), str(art["weights"]), mode, ordering,
+                                   "cuda")
+        names = pipe.router.expert_names
+        probs_of = {}
+        for d in (out_main, out):
+            rows = [json.loads(line) for line in (d / "probs.jsonl").read_text().splitlines()]
+            require([r["file"] for r in rows] == files, f"{d.name}: one probs row per image")
+            probs_of[d] = torch.tensor([[r["probs"][n] for n in names] for r in rows])
+        main_probs = probs_of[out_main]
+        expected = sum(expert_forwards(pipe.router, main_probs[i:i + PIPE_BATCH].cuda(),
+                                       pipe.thresholds) for i in range(0, len(files), PIPE_BATCH))
+        worst, probs_err, routes = 0, 0.0, []
+        with torch.inference_mode():
+            for bi, x in enumerate(xs):
+                restored, probs = pipe(x)
+                got = to_u8(restored)
+                require(got.shape == (len(batches[bi]), *EVAL_HW, 3)
+                        and bool(torch.isfinite(restored).all()), "outputs")
+                chunk = slice(bi * PIPE_BATCH, (bi + 1) * PIPE_BATCH)
+                for d in (out_main, out):
+                    png = np.stack([np.asarray(Image.open(d / f"{f.rsplit('.', 1)[0]}.png"))
+                                    for f in files[chunk]])
+                    worst = max(worst, int(np.abs(got.astype(np.int16) - png).max()))
+                    probs_err = max(probs_err, (probs.float().cpu() - probs_of[d][chunk]).abs()
+                                    .max().item())
+                    if mode == "top1":
+                        require(torch.equal(pipe.router.route(probs, pipe.thresholds).cpu(),
+                                            pipe.router.route(probs_of[d][chunk].cuda(),
+                                                              pipe.thresholds).cpu()),
+                                f"{d.name}: the CLI's routes are the in-process routes")
+                if mode == "top1":
+                    routes.append(pipe.router.route(probs, pipe.thresholds).cpu())
+        require(len(list(out_main.glob("*.png"))) == len(files)
+                and len(list(out.glob("*.png"))) == len(files), "one PNG per image")
+        last = log.getvalue().strip().splitlines()[-1]
+        msg = (f"{mode}/{ordering}: CLI in-process {main_s:.1f} s ({last}), subprocess "
+               f"{cli_s:.1f} s; in-process FullPipeline vs both "
+               f"CLIs' PNGs max |d| {worst} LSB (limit 1), probs max |d| {probs_err:.2e}; the "
+               f"in-process CLI ran {forwards} expert forwards (its probabilities call for "
+               f"{expected}) and {launches} dense_block launches (expected {20 * forwards})")
+        rec = {"launches": launches, "expert_forwards": forwards, "cli_s": cli_s}
+        if mode == "top1":
+            r = torch.cat(routes)
+            counts = {"routed": int((r >= 0).sum()), "clean": int((r == CLEAN).sum()),
+                      "dropped": int((r == DROPPED).sum())}
+            rec.update(counts)
+            msg += f"; routes {counts}, drop rate {counts['dropped'] / len(r):.4f}"
+            require(all(v > 0 for v in counts.values()), "top1 has routed, clean and dropped images")
+        say("pipeline", msg)
+        require(worst <= 1, "CLI PNGs within 1 LSB of the in-process pipeline")
+        require(forwards > 0 and forwards == expected, "the CLI ran the forwards its routes call for")
+        require(launches == 20 * forwards, "20 DenseBlock launches per expert forward")
+
+        # Timed on labelled traffic: each image routed to its own degradation's expert.
+        first = art["labels"][:PIPE_BATCH]
+        label = torch.tensor([[0.9 if lab == n else 0.1 for n in names] for lab in first],
+                             device="cuda")
+        lab_routes = pipe.router.route(label, pipe.thresholds)
+        t = time_step(pipe, xs[0], 10, probs=label)
+        t["drop_rate"] = int((lab_routes == DROPPED).sum()) / len(first)
+        rec["timed"] = t
+        say("times", f"[{smi}] pipeline {mode}/{ordering} B={PIPE_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} "
+            f"bf16, 9 experts, routed by the images' labels ({t['expert_forwards']} expert "
+            f"forwards, drop rate {t['drop_rate']:.4f}): classifier {t['classify_ms']:.3f} ms, "
+            f"bank {t['bank_ms']:.3f} ms, step {t['pipeline_ms']:.3f} ms "
+            f"({t['pipeline_img_s']:.1f} img/s)")
+        records[mode] = rec
+    return records
 
 
 def main() -> int:
@@ -1238,6 +1579,8 @@ def main() -> int:
         perceptual_times(torch, smi, records["jpeg_synthetic"]["engine"], noise_train_ms)
         profile_step(torch, smi, records["jpeg_synthetic"]["engine"])
     conv_lib_ms = library_conv_ms(torch, live)
+    probes = phase_probes(torch, smi)
+    phase_pipeline(torch, smi)
 
     src = f"{PKG}/csrc"
     ref = "multi_degradation_image_enhancement_tpu/ops/pallas"
@@ -1253,6 +1596,7 @@ def main() -> int:
         "conv3x3": (*conv_work([(BENCH_BATCH, ci, co, h, w) for _, ci, co, (h, w) in CM_CONVS]), "bf16"),
         "dense_block_tiled": (*dense_block_work([(EVAL_BATCH, 3, *PHOTO_HW)]), "bf16"),
         "fused_dense_block": (*dense_block_work(eval_blocks), "bf16"),
+        **probe_work(),
     }
     kernels = [
         {"name": "noise_degrade", "route": "cuda", "source": f"{src}/noise.cu",
@@ -1288,12 +1632,25 @@ def main() -> int:
          "max_abs_err": fdb_err, "ms": fdb_ms["kernel"], "plain_ms": fdb_ms["plain"],
          "library_ms": None},
     ]
+    for name, source, replaces in (
+            ("probe_matmul_bf16", "probe_matmul.cu", "benchmarks/exp_int8_reprobe.py:39"),
+            ("probe_matmul_int8", "probe_matmul.cu", "benchmarks/exp_int8_reprobe.py:39"),
+            ("m_dot_xt", "probe_transpose.cu", "benchmarks/exp_io_transpose.py:40"),
+            ("xt_dot_m", "probe_transpose.cu", "benchmarks/exp_io_transpose.py:50"),
+            ("transpose", "probe_transpose.cu", "benchmarks/exp_io_transpose.py:60")):
+        r = probes[name]
+        kernels.append({"name": name, "route": "cuda", "source": f"{src}/{source}",
+                        "replaces": replaces, "launches": r["launches"],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "library_ms": r["library_ms"]})
     for k in kernels:
         flops, nbytes, peak = work[k["name"]]
         k["bound_ms"], k["bound_by"] = bound(flops, nbytes, peak)
-        say("bounds", f"{k['name']}: {flops / 1e9:.1f} GFLOP ({peak}), {nbytes / 1e9:.3f} GB -> "
-            f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel {k['ms']:.3f} ms "
-            f"(roofline share {k['bound_ms'] / k['ms']:.1%}), launches {k['launches']}")
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.3f} ms"
+        say("bounds", f"[{smi}] {k['name']}: {flops / 1e9:.1f} GFLOP ({peak}), {nbytes / 1e9:.3f} GB "
+            f"-> bound {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel {k['ms']:.3f} ms "
+            f"(roofline share {k['bound_ms'] / k['ms']:.1%}), plain {k['plain_ms']:.3f} ms, "
+            f"library {lib}, launches {k['launches']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

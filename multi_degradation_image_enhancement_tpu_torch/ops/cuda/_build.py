@@ -140,6 +140,12 @@ def _declare(lib, ctypes) -> None:
         # conv_cm.cu
         "mdie_conv3x3": [p, i, i, i, i, i, p, p, i, i, p, p],
         "mdie_conv3x3_pool": [p, i, i, i, i, i, p, p, i, p, p],
+        # probe_matmul.cu
+        "mdie_probe_matmul": [p, p, i, i, i, i, i, p, p],
+        # probe_transpose.cu
+        "mdie_probe_transpose": [p, i, i, i, p, p],
+        "mdie_probe_rhsT": [p, p, i, i, p, p],
+        "mdie_probe_lhsT": [p, p, i, i, p, p],
     }
     restypes = {"mdie_growth_bwd_scratch": i64}
     for name, argtypes in signatures.items():

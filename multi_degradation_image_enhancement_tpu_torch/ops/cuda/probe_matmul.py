@@ -1,0 +1,83 @@
+"""The batched GEMM of the int8 / bf16 throughput probe: the CUDA kernel
+(``csrc/probe_matmul.cu``) and its plain PyTorch version.
+
+Counterpart of ``benchmarks/exp_int8_reprobe.py`` ``_mm_kernel`` (TPU kernel
+#11): ``o[i] = a[i] @ b[i]`` with ``a`` ``[batch, M, K]`` and ``b`` ``[batch,
+K, N]``, in one of the probe's two type sets:
+
+* bf16 operands, f32 accumulation, bf16 out (one rounding);
+* int8 operands, i32 accumulation, i32 out (exact).
+
+:func:`probe_matmul` takes the plain version only for tensors on the CPU.
+For CUDA tensors it launches the kernel or raises; ``probe_matmul.launches``
+counts one per launch.  The kernel takes M and N in multiples of 128 and K in
+multiples of 32, as the probe's shapes are.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
+
+OUT_DTYPE = {torch.bfloat16: torch.bfloat16, torch.int8: torch.int32}
+_K_STEP = 32  # elements of K per pipeline stage
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Matmuls in full f32 (TF32 off) for the block, the caller's setting after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.dtype not in OUT_DTYPE or b.dtype != a.dtype:
+        raise ValueError(f"probe_matmul: a and b must both be bfloat16 or int8, got {a.dtype}, {b.dtype}")
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
+        raise ValueError(f"probe_matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)} are not "
+                         "[batch, M, K] @ [batch, K, N]")
+
+
+def probe_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``torch.bmm`` on f32 copies with TF32 off, cast to the
+    output type.  For int8 it is exact while every partial sum stays below
+    2**24, i.e. K <= 1024 (the probe's K=512 sums at most 2**23)."""
+    _check(a, b)
+    with full_f32_matmul():
+        return torch.bmm(a.float(), b.float()).to(OUT_DTYPE[a.dtype])
+
+
+def probe_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``o[i] = a[i] @ b[i]``: bf16 → bf16 (f32 accumulation) or int8 → int32.
+    CPU: the plain version; CUDA: one kernel launch."""
+    _check(a, b)
+    if a.device.type == "cpu":
+        return probe_matmul_plain(a, b)
+    bsz, m, k = a.shape
+    n = b.shape[2]
+    if m % 128 or n % 128 or k % _K_STEP:
+        raise ValueError(f"probe_matmul: M={m} and N={n} must be multiples of 128, K={k} of "
+                         f"{_K_STEP}")
+    for name, t in (("a", a), ("b", b)):
+        _build.require(t, name, a.dtype)
+        if t.data_ptr() % 16:
+            raise ValueError(f"probe_matmul: {name} must be 16-byte aligned")
+    _build.require_batch(bsz, "probe_matmul")
+    out = torch.empty((bsz, m, n), dtype=OUT_DTYPE[a.dtype], device=a.device)
+    err = _build.load().mdie_probe_matmul(
+        a.data_ptr(), b.data_ptr(), int(a.dtype == torch.int8), bsz, m, k, n, out.data_ptr(),
+        _build.stream_of(a),
+    )
+    _build.check(err, "probe_matmul")
+    probe_matmul.launches += 1
+    return out
+
+
+probe_matmul.launches = 0

@@ -1,5 +1,5 @@
-"""Weight bridge: a Flax CDAN ``{params, batch_stats}`` tree ↔ the port's
-``state_dict``.
+"""Weight bridge: a Flax CDAN or ``MultiHeadClassifier`` ``{params,
+batch_stats}`` tree ↔ the port's ``state_dict``.
 
 The inverse of ``multi_degradation_image_enhancement_tpu/utils/torch_port.py``
 ``port_reference_cdan``, with the same mapping table written out again here
@@ -82,6 +82,24 @@ def cdan_mapping():
     return entries
 
 
+def classifier_mapping():
+    """(Flax module path, PyTorch module prefix, kind) for the whole
+    ``MultiHeadClassifier``: Flax's ``layer{i}_{j}`` is torchvision's
+    ``layer{i}.{j}``, its ``downsample_conv`` / ``downsample_bn`` are
+    ``downsample.0`` / ``.1``."""
+    entries = [(("backbone", "conv1"), "backbone.conv1", "conv_nobias"),
+               (("backbone", "bn1"), "backbone.bn1", "bn")]
+    for li in range(1, 5):
+        for bi in range(2):
+            flax, torch_ = ("backbone", f"layer{li}_{bi}"), f"backbone.layer{li}.{bi}"
+            entries += [(flax + (name,), f"{torch_}.{name}", kind) for name, kind in (
+                ("conv1", "conv_nobias"), ("bn1", "bn"), ("conv2", "conv_nobias"), ("bn2", "bn"))]
+            if li > 1 and bi == 0:  # stride 2 and a new width: the 1x1 downsample
+                entries += [(flax + ("downsample_conv",), f"{torch_}.downsample.0", "conv_nobias"),
+                            (flax + ("downsample_bn",), f"{torch_}.downsample.1", "bn")]
+    return entries + [(("head_cls",), "head_cls", "linear"), (("head_sev",), "head_sev", "linear")]
+
+
 def _conv(k: np.ndarray) -> np.ndarray:
     return k.transpose(3, 2, 0, 1)  # HWIO → OIHW
 
@@ -145,6 +163,12 @@ def dense_block_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]
     return convert_entries(variables, _dense_block_entries((), ""))
 
 
+def classifier_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax ``MultiHeadClassifier`` tree → the port's classifier
+    ``state_dict`` (load with ``strict=True``)."""
+    return convert_entries(variables, classifier_mapping())
+
+
 def _set(tree: Dict[str, Any], path: Tuple[str, ...], leaf: Dict[str, np.ndarray]) -> None:
     for p in path:
         tree = tree.setdefault(p, {})
@@ -154,7 +178,8 @@ def _set(tree: Dict[str, Any], path: Tuple[str, ...], leaf: Dict[str, np.ndarray
 def state_dict_to_flax(sd: Dict[str, Any], entries=None) -> Dict[str, Any]:
     """The port's CDAN ``state_dict`` (tensors or arrays) → a Flax
     ``{params, batch_stats}`` tree of NumPy arrays (``entries`` defaults to the
-    whole CDAN's mapping table)."""
+    whole CDAN's mapping table; :func:`classifier_mapping` gives the
+    classifier's)."""
 
     def get(key):
         v = sd[key]

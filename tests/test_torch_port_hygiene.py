@@ -1,8 +1,10 @@
-"""PyTorch port hygiene: it imports and runs a CPU serving step and the CPU
-training and test CLI with JAX blocked, refuses CUDA without a card, counts
-no launch on the plain path, refuses to run its inference kernels under
-autograd, and its C entry points match the CUDA sources."""
+"""PyTorch port hygiene: it imports and runs a CPU serving step, the CPU
+training and test CLI and the CPU serving pipeline CLI with JAX blocked,
+refuses CUDA without a card, counts no launch on the plain path, refuses to
+run its inference kernels under autograd, and its C entry points match the
+CUDA sources."""
 
+import json
 import os
 import re
 import subprocess
@@ -12,7 +14,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from multi_degradation_image_enhancement_tpu_torch import serving
+from multi_degradation_image_enhancement_tpu_torch import run_pipeline, serving
+from multi_degradation_image_enhancement_tpu_torch.benchmarks import exp_int8_reprobe
 from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
 from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_fast_apply
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
@@ -31,13 +34,20 @@ from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import 
     growth_layer_fwd,
 )
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.noise import noise_degrade_01
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_matmul import probe_matmul
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_transpose import (
+    m_dot_xt,
+    transpose,
+    xt_dot_m,
+)
+from tests.torch_pipeline_cli import cli_args, write_tiny_pipeline
 from tests.torch_train_cli import check_tiny_run, check_tiny_test_run, write_tiny_config
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG_DIR = ROOT / "multi_degradation_image_enhancement_tpu_torch"
 
 _BLOCKED_RUN = r"""
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "multi_degradation_image_enhancement_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 sys.path.insert(0, sys.argv[1])
@@ -51,35 +61,49 @@ step, clean = serving.build_pipeline(2, 16, torch.float32, "cpu")
 out = step(clean, torch.Generator().manual_seed(0))
 assert out.shape == (2, 16, 16, 3) and out.dtype == torch.float32
 assert bool(torch.isfinite(out).all()) and 0.0 <= float(out.min()) and float(out.max()) <= 1.0
-from multi_degradation_image_enhancement_tpu_torch import run
+from multi_degradation_image_enhancement_tpu_torch import run, run_pipeline
 from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
-for path in sys.argv[2:]:
+job = json.loads(sys.argv[2])
+for path in job["configs"]:
     run.main(load_config(path, phase="train"))
     run.main(load_config(path, phase="test"))
+for argv in job["pipeline"]:
+    run_pipeline.main(argv)
 print("OK", len(mods))
 """
 
 
 def test_port_imports_and_runs_with_jax_blocked(tmp_path):
-    """Every module imports, a serving step runs, and the CPU CLI trains and
-    scores the tiny configs of tests/torch_train_cli.py with JAX blocked:
-    noise_synthetic, and jpeg_synthetic (the jpeg degradation, the VGG and
-    LPIPS loss terms)."""
+    """Every module imports, a serving step runs, the CPU CLI trains and
+    scores the tiny configs of tests/torch_train_cli.py (noise_synthetic, and
+    jpeg_synthetic: the jpeg degradation, the VGG and LPIPS loss terms), and
+    the serving pipeline CLI restores a directory in top1 and in
+    severity-ordered sequential mode, all with JAX blocked."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     (tmp_path / "jpeg").mkdir()
     configs = [write_tiny_config(tmp_path), write_tiny_config(tmp_path / "jpeg", "jpeg_synthetic")]
+    pipe = write_tiny_pipeline(tmp_path / "pipeline")
+    outs = [tmp_path / "pipeline" / "top1", tmp_path / "pipeline" / "severity"]
+    job = {"configs": list(map(str, configs)),
+           "pipeline": [cli_args(pipe, outs[0], "--save-probs"),
+                        cli_args(pipe, outs[1], "--mode", "sequential", "--ordering", "severity")]}
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT), *map(str, configs)],
+        [sys.executable, "-c", _BLOCKED_RUN, str(ROOT), json.dumps(job)],
         capture_output=True, text=True, timeout=300, cwd=ROOT, env=env,
     )
     assert proc.returncode == 0, proc.stderr
     last = proc.stdout.splitlines()[-1].split()
     assert last[0] == "OK"
-    assert int(last[1]) >= 33  # every module of the package was imported
+    assert int(last[1]) >= 52  # every module of the package was imported
     check_tiny_run(tmp_path)
     check_tiny_test_run(tmp_path)
     check_tiny_run(tmp_path / "jpeg", "jpeg_synthetic")
     check_tiny_test_run(tmp_path / "jpeg", "jpeg_synthetic")
+    for out in outs:
+        assert sorted(p.name for p in out.glob("*.png")) == ["im0.png", "im1.png", "im2.png"]
+    rows = [json.loads(line) for line in (outs[0] / "probs.jsonl").read_text().splitlines()]
+    assert [r["file"] for r in rows] == ["im0.png", "im1.png", "im2.png"]
+    assert set(rows[0]["probs"]) == {"noise", "blur", "low_light"}  # only the loaded experts
 
 
 def test_no_jax_import_in_port_sources():
@@ -100,11 +124,17 @@ def test_cuda_without_a_card_raises():
     for name in ("cuda", "tpu"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # --device defaults to cuda
+        run_pipeline.main(["--images", "d", "--out", "o", "--classifier", "c.pt",
+                           "--weights-dir", "w"])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        exp_int8_reprobe.run()
 
 
 def _launches():
     return (noise_degrade_01.launches, dense_block.launches, growth_layer_fwd.launches,
-            growth_layer_bwd.launches, conv3x3.launches, conv3x3_pool.launches)
+            growth_layer_bwd.launches, conv3x3.launches, conv3x3_pool.launches,
+            probe_matmul.launches, m_dot_xt.launches, xt_dot_m.launches, transpose.launches)
 
 
 def test_plain_path_counts_no_launch():
@@ -122,6 +152,13 @@ def test_plain_path_counts_no_launch():
     block.fused = True
     block(torch.rand(2, 64, 8, 8)).sum().backward()
     assert block.layers[0][2].weight.grad is not None
+    # the probe kernels (#11-#14)
+    a = torch.randint(-128, 128, (1, 16, 64), dtype=torch.int8)
+    assert probe_matmul(a, a.transpose(1, 2).contiguous()).dtype == torch.int32
+    x = torch.rand(1, 8, 64).to(torch.bfloat16)
+    eye = torch.eye(64, dtype=torch.bfloat16)
+    assert torch.equal(xt_dot_m(m_dot_xt(x, eye), eye), x)
+    assert transpose(x).shape == (1, 64, 8)
     assert _launches() == n0
 
 
@@ -149,7 +186,8 @@ def test_c_entry_points_exist_in_sources():
     declared = re.findall(r'"(mdie_\w+)"', Path(_build.__file__).read_text())
     assert {"mdie_noise_degrade", "mdie_philox_bits", "mdie_growth_layer",
             "mdie_transition", "mdie_growth_fwd", "mdie_growth_bwd",
-            "mdie_growth_bwd_scratch", "mdie_conv3x3", "mdie_conv3x3_pool"} <= set(declared)
+            "mdie_growth_bwd_scratch", "mdie_conv3x3", "mdie_conv3x3_pool", "mdie_probe_matmul",
+            "mdie_probe_transpose", "mdie_probe_rhsT", "mdie_probe_lhsT"} <= set(declared)
     for name in declared + ["mdie_error_string"]:
         assert re.search(rf"\b{name}\(", src), name
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)

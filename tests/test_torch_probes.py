@@ -1,0 +1,138 @@
+"""PyTorch port: the plain versions of the probe kernels #11–#14 against the
+JAX probes' own kernel bodies.
+
+Each body (``_mm_kernel``, ``kernel_rhsT``, ``kernel_lhsT``, ``kernel_jnpT``)
+runs through ``pl.pallas_call(..., interpret=True)`` with BlockSpecs built
+here, at small shapes, on the same NumPy inputs as the port.  On the CPU the
+port's wrappers take their plain versions (the CUDA kernels are held against
+those on the card by chip_smoke.py).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from benchmarks.exp_int8_reprobe import _mm_kernel
+from benchmarks.exp_io_transpose import kernel_jnpT, kernel_lhsT, kernel_rhsT
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_matmul import probe_matmul
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_transpose import (
+    m_dot_xt,
+    transpose,
+    xt_dot_m,
+)
+
+B, M, K, N, N_BLOCK = 2, 32, 64, 128, 64  # the probe's grid (blocks, N / N_BLOCK), scaled down
+P, C = 256, 64
+
+
+def _jax_mm(a, b, acc_dtype, out_dtype):
+    call = pl.pallas_call(
+        functools.partial(_mm_kernel, acc_dtype=acc_dtype),
+        grid=(B, N // N_BLOCK),
+        in_specs=[pl.BlockSpec((1, M, K), lambda i, j: (i, 0, 0)),
+                  pl.BlockSpec((1, K, N_BLOCK), lambda i, j: (i, 0, j))],
+        out_specs=pl.BlockSpec((1, M, N_BLOCK), lambda i, j: (i, 0, j)),
+        out_shape=jax.ShapeDtypeStruct((B, M, N), out_dtype),
+        interpret=True,
+    )
+    return np.asarray(call(a, b).astype(jnp.float32) if out_dtype == jnp.bfloat16 else call(a, b))
+
+
+def test_int8_matmul_is_exact():
+    rng = np.random.RandomState(0)
+    a = rng.randint(-128, 128, (B, M, K)).astype(np.int8)
+    b = rng.randint(-128, 128, (B, K, N)).astype(np.int8)
+    want = _jax_mm(jnp.asarray(a), jnp.asarray(b), jnp.int32, jnp.int32)
+    got = probe_matmul(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the extremes: |sum| reaches K * 128^2 and stays exact
+    a[:] = -128
+    b[:] = -128
+    got = probe_matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert (got == K * 128 * 128).all()
+
+
+def test_bf16_matmul_within_two_ulp():
+    """Positive operands (no output cancels): f32 accumulation in another
+    order, one bf16 rounding each side, so at most one bf16 ulp apart; the
+    bound is two ulp relative (2 * 2**-7)."""
+    rng = np.random.RandomState(1)
+    a = jnp.asarray(rng.rand(B, M, K).astype(np.float32), jnp.bfloat16)
+    b = jnp.asarray(rng.rand(B, K, N).astype(np.float32), jnp.bfloat16)
+    want = _jax_mm(a, b, jnp.float32, jnp.bfloat16)
+    ta = torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+    tb = torch.from_numpy(np.asarray(b.astype(jnp.float32))).to(torch.bfloat16)
+    got = probe_matmul(ta, tb)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, M, N)
+    assert (np.abs(got.float().numpy() - want) <= 2 * 2.0**-7 * np.abs(want)).all()
+
+
+def _jax_product(kernel, x, m, in_block, out_block, out_shape):
+    return pl.pallas_call(
+        kernel, grid=(B,),
+        in_specs=[pl.BlockSpec(in_block, lambda i: (i, 0, 0)), pl.BlockSpec((C, C), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec(out_block, lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct(out_shape, jnp.bfloat16), interpret=True,
+    )(x, m)
+
+
+def _bf16_pair(arr):
+    """The same bf16 values as a JAX and a torch array."""
+    j = jnp.asarray(arr, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("route", ["rhsT", "lhsT"])
+@pytest.mark.parametrize("m_kind", ["identity", "random"])
+def test_products_match_probe_bodies(route, m_kind):
+    """``M · xᵀ`` and ``xᵀ · M``: with M = I a transpose, bit for bit; with a
+    seeded random M (U(-1, 1)) within one bf16 ulp of the largest output
+    (2**-7 * max|o|): f32 sums in another order may move one rounding."""
+    rng = np.random.RandomState(2)
+    m = np.eye(C, dtype=np.float32) if m_kind == "identity" else rng.uniform(-1, 1, (C, C))
+    jm, tm = _bf16_pair(m)
+    if route == "rhsT":
+        jx, tx = _bf16_pair(rng.rand(B, P, C))
+        want = _jax_product(kernel_rhsT, jx, jm, (1, P, C), (1, C, P), (B, C, P))
+        got = m_dot_xt(tx, tm)
+    else:
+        jx, tx = _bf16_pair(rng.rand(B, C, P))
+        want = _jax_product(kernel_lhsT, jx, jm, (1, C, P), (1, P, C), (B, P, C))
+        got = xt_dot_m(tx, tm)
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    assert got.shape == want.shape
+    if m_kind == "identity":
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, np.swapaxes(np.asarray(jx.astype(jnp.float32)), 1, 2))
+    else:
+        assert np.abs(got - want).max() <= 2.0**-7 * np.abs(want).max()
+
+
+def test_transpose_matches_probe_body():
+    """The probe's own input (``arange·1e-4`` in bf16), bit for bit."""
+    x = jnp.arange(B * P * C, dtype=jnp.int32).astype(jnp.bfloat16).reshape(B, P, C) * 1e-4
+    want = pl.pallas_call(
+        kernel_jnpT, grid=(B,), in_specs=[pl.BlockSpec((1, P, C), lambda i: (i, 0, 0))],
+        out_specs=pl.BlockSpec((1, C, P), lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((B, C, P), jnp.bfloat16), interpret=True,
+    )(x)
+    got = transpose(torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="bfloat16 or int8"):
+        probe_matmul(torch.zeros(1, 4, 4), torch.zeros(1, 4, 4))
+    with pytest.raises(ValueError, match=r"\[batch, M, K\]"):
+        probe_matmul(torch.zeros(1, 4, 4, dtype=torch.int8), torch.zeros(1, 8, 4, dtype=torch.int8))
+    with pytest.raises(ValueError, match="do not fit"):
+        m_dot_xt(torch.zeros(1, 8, 32, dtype=torch.bfloat16), torch.eye(64, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="bfloat16"):
+        transpose(torch.zeros(1, 4, 4))
