@@ -28,7 +28,8 @@ line per phase, and exits non-zero at the first failure:
     step, kernel vs plain;
 12. conv kernels vs their plain versions, TF32 off: conv+pool (#9) at conv1
     of B=128·256² and B=16·256×384, conv (#8) at the seven CM conv shapes of
-    B=128·256²;
+    B=128·256² and of B=16·256×384, at c_in 72 / c_out 3, at 32×34 and with
+    an f32 x;
 13. the bf16 all-channel-major forward vs the f32 ``CDAN`` at 2×256² and
     2×256×384, with the default conv table and with every conv on #8;
 14. the DenseBlock kernel at the block shapes where the JAX package takes
@@ -73,9 +74,11 @@ line per phase, and exits non-zero at the first failure:
     ``build/chip_smoke_pipeline/``; the CLI ``run_pipeline`` in top1 and
     severity-ordered sequential mode (B=32), in-process with the counts
     reset around it and as a subprocess; its PNGs against an in-process
-    ``FullPipeline`` (1 LSB), the DenseBlock launches per expert forward,
-    the three top1 cases (routed, clean, dropped), and the step's times and
-    drop rate with each image routed by its own degradation.
+    ``FullPipeline`` (1 LSB), no DenseBlock launch (the experts run the eval
+    module under a bf16 autocast, the JAX pipeline's route), the three top1
+    cases (routed, clean, dropped), the step's times and drop rate with each
+    image routed by its own degradation, and one expert's module and fused
+    routes against the f32 module.
 
 Phases 5, 12-14, 17 and 24 use CDANs whose BatchNorm statistics keep the whole path
 live (``live_cdan``): with ``init_cdan``'s statistics the decoder's ReLUs
@@ -631,10 +634,10 @@ def phase_times(torch, smi, step, bench_clean, eval_clean, packs):
     return times
 
 
-def _conv_pairs(torch, model):
+def _conv_pairs(torch, model, bsz=BENCH_BATCH, hw=(BENCH_SIZE, BENCH_SIZE)):
     """(name, pack, x) of conv1's #9 call at both serving shapes and the
-    seven #8 calls at B=128·256², with the model's folded weights and bf16
-    inputs drawn U(0, 1)."""
+    seven #8 calls of a B=``bsz``·``hw`` CM forward, with the model's folded
+    weights and bf16 inputs drawn U(0, 1)."""
     from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import _fold_all
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import pack_conv
 
@@ -645,22 +648,40 @@ def _conv_pairs(torch, model):
     def rand(*shape):
         return torch.rand(shape, device=dev, generator=g).to(torch.bfloat16)
 
-    pool = [(f"conv1 B={bsz} {h}x{w}", pack_conv(*folded["conv1"], device=dev), rand(bsz, 3, h, w))
-            for bsz, (h, w) in ((BENCH_BATCH, (BENCH_SIZE, BENCH_SIZE)), (EVAL_BATCH, EVAL_HW))]
-    convs = [(f"{name} {c_in}->{c_out} {h}x{w}", pack_conv(*folded[name], device=dev),
-              rand(BENCH_BATCH, c_in, h, w)) for name, c_in, c_out, (h, w) in CM_CONVS]
+    pool = [(f"conv1 B={b} {h}x{w}", pack_conv(*folded["conv1"], device=dev), rand(b, 3, h, w))
+            for b, (h, w) in ((BENCH_BATCH, (BENCH_SIZE, BENCH_SIZE)), (EVAL_BATCH, EVAL_HW))]
+    convs = []
+    for name, c_in, c_out, (h256, _) in CM_CONVS:  # at 1/2, 1/4 or 1/8 of the image
+        h, w = (v // (BENCH_SIZE // h256) for v in hw)
+        convs.append((f"{name} {c_in}->{c_out} B={bsz} {h}x{w}", pack_conv(*folded[name], device=dev),
+                      rand(bsz, c_in, h, w)))
     return pool, convs
 
 
 def phase_conv_kernels(torch, model):
     """#9 and #8 (bf16 in and out) vs their plain versions on the same bf16
     inputs in f32, TF32 off: max <= 5e-2, mean <= 5e-3
-    (tests/test_pallas_kernels.py:259-260,299-300)."""
+    (tests/test_pallas_kernels.py:259-260,299-300).  #8 at the seven CM
+    conv shapes of B=128·256² and of B=16·256×384, at c_in = 72 (a ragged
+    64-channel K step) with c_out = 3, at 32×34 (rows of 34 pixels: the
+    8-pixel tiles and the edge) and with an f32 x (rounded to bf16 by the
+    NHWC pass, f32 out)."""
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
-        conv3x3, conv3x3_plain, conv3x3_pool, conv3x3_pool_plain,
+        conv3x3, conv3x3_plain, conv3x3_pool, conv3x3_pool_plain, pack_conv,
     )
 
+    dev = torch.device("cuda")
     pool, convs = _conv_pairs(torch, model)
+    convs += _conv_pairs(torch, model, EVAL_BATCH, EVAL_HW)[1]
+    g = torch.Generator(device=dev).manual_seed(17)
+    w72 = torch.randn((3, 72, 3, 3), device=dev, generator=g) * (2.0 / (9 * 72)) ** 0.5
+    pack72 = pack_conv(w72, torch.randn((3,), device=dev, generator=g) * 0.1, device=dev)
+    convs.append(("72->3 B=4 96x136", pack72,
+                  torch.rand((4, 72, 96, 136), device=dev, generator=g).to(torch.bfloat16)))
+    convs.append(("conv2 64->128 B=2 32x34", convs[0][1],
+                  torch.rand((2, 64, 32, 34), device=dev, generator=g).to(torch.bfloat16)))
+    _, f32_pack, f32_x = convs[len(CM_CONVS)]  # conv2 at the eval shape, f32 in and out
+    convs.append(("conv2 B=16 128x192 f32", f32_pack, f32_x.float()))
     worst = {"conv3x3_pool": 0.0, "conv3x3": 0.0}
     for kname, kern, plain, pairs in (("conv3x3_pool", conv3x3_pool, conv3x3_pool_plain, pool),
                                       ("conv3x3", conv3x3, conv3x3_plain, convs)):
@@ -668,7 +689,7 @@ def phase_conv_kernels(torch, model):
             got = kern(x, pack)
             ref = plain(x.float(), pack)
             torch.cuda.synchronize()
-            require(got.dtype == torch.bfloat16 and got.shape == ref.shape, f"{kname} {label} shape")
+            require(got.dtype == x.dtype and got.shape == ref.shape, f"{kname} {label} shape")
             err = (got.float() - ref).abs()
             worst[kname] = max(worst[kname], err.max().item())
             say("conv_kernels", f"{kname} {label}: max {err.max().item():.3e} (limit 5e-2) mean "
@@ -1228,7 +1249,8 @@ def phase_probes(torch, smi):
     against its plain version: the int8 GEMM and the transposes (``M = I``
     for #12/#13) bit for bit; #12/#13 with a seeded random M (U(-1, 1)) within
     one bf16 ulp of the largest output (2**-7 * max|ref|); the bf16 GEMM on
-    positive operands within 2 bf16 ulp relative (|d| <= 2**-6 * |ref|).
+    positive operands within 2 bf16 ulp relative (|d| <= 2**-6 * |ref|); both
+    GEMM types at 3 x [256,96] @ [96,384] too (ragged K and N tiles).
     Then the main path: both probe scripts with every count reset before.
     Returns per kernel its error, plain ms, kernel ms, library ms, launches."""
     from multi_degradation_image_enhancement_tpu_torch.benchmarks import (
@@ -1265,7 +1287,13 @@ def phase_probes(torch, smi):
             for s in ((3, 256, 96), (3, 96, 384)))
     require(torch.equal(probe_matmul(a, b), probe_matmul_plain(a, b)),
             "int8 GEMM equals its plain version at 3 x [256,96] @ [96,384]")
-    say("probes", "#11 int8 (3, 256, 96) @ (3, 96, 384): exact")
+    a, b = (torch.rand(s, generator=g, device="cuda").to(torch.bfloat16)
+            for s in ((3, 256, 96), (3, 96, 384)))
+    got, ref = probe_matmul(a, b).float(), probe_matmul_plain(a, b).float()
+    require(bool(((got - ref).abs() <= 2.0**-6 * ref.abs()).all()),
+            "bf16 GEMM within 2 ulp at 3 x [256,96] @ [96,384]")
+    say("probes", "#11 int8 (3, 256, 96) @ (3, 96, 384): exact; bf16 (positive operands): "
+        f"max rel {((got - ref).abs() / ref.abs()).max().item():.3e} (limit 2**-6, 2 bf16 ulp)")
 
     x, eye = exp_io_transpose.probe_inputs()
     g = torch.Generator(device="cuda").manual_seed(23)
@@ -1390,9 +1418,10 @@ def phase_pipeline(torch, smi):
     """Phase 24: the CLI ``run_pipeline`` restores the 64 PNGs on the card
     (B=32, nine experts, bf16), in top1 and in severity-ordered sequential
     mode.  Each mode runs it in-process through ``run_pipeline.main`` with
-    the DenseBlock and expert-forward counts reset just before (20 launches
-    per expert forward that ran, and the forwards those its own probabilities
-    call for), and as a subprocess (``python -m``); both runs' PNGs within 1
+    the DenseBlock and expert-forward counts reset just before (no DenseBlock
+    launch: the experts are the eval module, as in the JAX pipeline; and the
+    forwards its own probabilities call for), and as a subprocess (``python
+    -m``); both runs' PNGs within 1
     LSB of an in-process ``FullPipeline`` on the same decoded batches, the
     same route for each image, top1 showing routed, clean and dropped images.
     Then the step timed as ``benchmarks/bench_pipeline.py`` times it
@@ -1507,7 +1536,7 @@ def phase_pipeline(torch, smi):
                f"{cli_s:.1f} s; in-process FullPipeline vs both "
                f"CLIs' PNGs max |d| {worst} LSB (limit 1), probs max |d| {probs_err:.2e}; the "
                f"in-process CLI ran {forwards} expert forwards (its probabilities call for "
-               f"{expected}) and {launches} dense_block launches (expected {20 * forwards})")
+               f"{expected}) and {launches} dense_block launches (expected 0: the eval module)")
         rec = {"launches": launches, "expert_forwards": forwards, "cli_s": cli_s}
         if mode == "top1":
             r = torch.cat(routes)
@@ -1519,7 +1548,7 @@ def phase_pipeline(torch, smi):
         say("pipeline", msg)
         require(worst <= 1, "CLI PNGs within 1 LSB of the in-process pipeline")
         require(forwards > 0 and forwards == expected, "the CLI ran the forwards its routes call for")
-        require(launches == 20 * forwards, "20 DenseBlock launches per expert forward")
+        require(launches == 0, "no DenseBlock launch: the experts run the eval module")
 
         # Timed on labelled traffic: each image routed to its own degradation's expert.
         first = art["labels"][:PIPE_BATCH]
@@ -1535,7 +1564,40 @@ def phase_pipeline(torch, smi):
             f"bank {t['bank_ms']:.3f} ms, step {t['pipeline_ms']:.3f} ms "
             f"({t['pipeline_img_s']:.1f} img/s)")
         records[mode] = rec
+    records["routes"] = pipeline_routes(torch, art, xs)
     return records
+
+
+def pipeline_routes(torch, art, xs):
+    """What the bank's route changes: one expert (noise's) over the 64
+    images, through the module route ``load_expert_bank`` builds (bf16
+    autocast) and through the fused serving forward it used before
+    (``build_serving_apply``, bf16), each against the f32 module (TF32 off):
+    max and mean |d| and the PSNR of the route's output against the f32
+    module's."""
+    from multi_degradation_image_enhancement_tpu_torch.engine.checkpoint import load_weights
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN, eval_forward
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_serving_apply
+    from multi_degradation_image_enhancement_tpu_torch.pipeline import load_expert_bank
+
+    path = str(art["weights"] / "CDAN_noise.pt")
+    model = load_weights(path, CDAN()).to("cuda").eval()
+    ref_fn = eval_forward(model, torch.float32)
+    routes = {"module": load_expert_bank({"noise": path}, torch.device("cuda"), torch.bfloat16)[1][0],
+              "fused": build_serving_apply(model, torch.bfloat16, torch.device("cuda"))}
+    out = {}
+    with torch.inference_mode():
+        ref = torch.cat([ref_fn(x) for x in xs])
+        for name, fn in routes.items():
+            d = torch.cat([fn(x).float() for x in xs]) - ref
+            mse = (d * d).mean().item()
+            out[name] = {"max_abs": d.abs().max().item(), "mean_abs": d.abs().mean().item(),
+                         "psnr_db": 10.0 * math.log10(1.0 / mse) if mse > 0 else float("inf")}
+            say("pipeline", f"route {name} (bf16) vs the f32 module, noise expert over "
+                f"{ref.shape[0]} images: max {out[name]['max_abs']:.3e} mean "
+                f"{out[name]['mean_abs']:.3e} PSNR {out[name]['psnr_db']:.2f} dB")
+            require(bool(torch.isfinite(d).all()), f"route {name} finite")
+    return out
 
 
 def main() -> int:

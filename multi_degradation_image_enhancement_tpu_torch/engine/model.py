@@ -51,7 +51,7 @@ import torch
 from multi_degradation_image_enhancement_tpu_torch.data.loader import batch_seed
 from multi_degradation_image_enhancement_tpu_torch.engine import checkpoint as ckpt
 from multi_degradation_image_enhancement_tpu_torch.engine.state import TrainState
-from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
+from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN, eval_forward
 from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_serving_apply
 from multi_degradation_image_enhancement_tpu_torch.ops.losses import build_loss_pipeline
 from multi_degradation_image_enhancement_tpu_torch.ops.metrics import build_metrics_pipeline
@@ -323,18 +323,16 @@ class Model:
         with targets the loss and metric pipelines on the raw and on the
         post-processed outputs, each as configured (mask-aware means, device
         scalars)."""
-        fused = self._fused_eval_forward(model)
-        if fused is not None:
+        forward = self._fused_eval_forward(model)
+        if forward is not None:
             print("[ENGINE] fused inference kernels active (CUDA DenseBlocks)")
-        bf16 = self.precision == "bf16"
+        else:
+            forward = eval_forward(model, torch.bfloat16 if self.precision == "bf16"
+                                   else torch.float32)
 
         @torch.inference_mode()
         def step(inputs, targets=None, mask=None) -> Dict[str, object]:
-            if fused is not None:
-                outputs = fused(inputs)
-            else:
-                with torch.autocast(inputs.device.type, dtype=torch.bfloat16, enabled=bf16):
-                    outputs = model(inputs)
+            outputs = forward(inputs)
             post = apply_postprocessing(outputs, self.postproc_cfg)
             result: Dict[str, object] = {"raw": outputs, "post": post}
             for stage, out, on in (("pre", outputs, self.eval_on_raw),

@@ -30,7 +30,7 @@ bf16 autocast), while every BatchNorm in train or refresh mode runs in f32.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -257,6 +257,37 @@ class CDAN(nn.Module):
         out = self.bottleneck(out)
         out = self.decoder(x, out, skips, denses)
         return out.permute(0, 2, 3, 1).float()
+
+
+def eval_forward(model: nn.Module, dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``model`` (in eval mode, on its device) as an inference forward in
+    ``dtype``: under a bf16 autocast on the input's device for bf16, plainly
+    for f32.  The counterpart of ``CDAN(dtype).apply(v, x, train=False)``
+    with every DenseBlock unfused, the route of the JAX pipeline
+    (``pipeline.py:125-126``) and of the evaluation engine with
+    ``fused_kernels: false``, which both use this helper.
+
+    Under the autocast the convolutions, transposed convolutions and linears
+    run in bf16.  Eval BatchNorm is ``torch.nn.BatchNorm2d``'s: it takes the
+    bf16 activations as they come and returns bf16, normalising in f32 with
+    one rounding.  The JAX module runs eval BatchNorm in the compute dtype
+    (``dtype=jnp.float32 if norm else self.dtype``, ``models/cdan.py:64,
+    156,166,340``), i.e. in bf16 arithmetic; the port keeps PyTorch's kernel
+    (an emulation of bf16 arithmetic would cost extra passes), so the two
+    differ by bf16 rounding only.  Where BatchNorm's input is f32
+    (``final_dense``, after the f32 global residual) the port's output stays
+    f32 and the conv after it rounds it to bf16, where JAX rounds at the
+    BatchNorm."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"eval_forward: dtype must be float32 or bfloat16, got {dtype}")
+    bf16 = dtype == torch.bfloat16
+
+    @torch.no_grad()
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+            return model(x)
+
+    return forward
 
 
 @torch.no_grad()

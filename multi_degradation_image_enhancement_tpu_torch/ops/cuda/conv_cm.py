@@ -17,13 +17,21 @@ f32, and the result is rounded once to x's dtype (f32 or bf16).
 
 Each wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches its kernel or raises; ``conv3x3.launches`` and
-``conv3x3_pool.launches`` count one per launch.  Inference only: both raise
+``conv3x3_pool.launches`` count one per call that launches (a
+:func:`conv3x3` call launches its NHWC pass and its GEMM).  Inference only: both raise
 when grad is enabled and x or the pack requires grad.
+
+:func:`conv3x3`'s kernel is an implicit GEMM on the tensor cores (K = 9 taps
+× c_in): a first pass rounds x to bf16 into an NHWC scratch (channels padded
+to 8), whose pixel rows TMA reads K-major at each tap's shift, and the
+weights come K-major from ``ConvPack.w_packed``.  It takes every NCHW shape
+:func:`launch_error` does not name.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -35,13 +43,21 @@ from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
 )
 
 
+K_CHUNK = 64  # input channels of one K step of #8 (c_in is padded to it)
+C_OUT_ALIGN = 8  # wgmma's N granule (c_out is padded to it: de4's 3 -> 8)
+
+
 @dataclass
 class ConvPack:
     """A 3×3 conv with its BatchNorm folded in, as the kernels read it:
-    ``w_bf16`` ``[c_out, c_in, 3, 3]`` (OIHW, bf16) and ``bias`` f32 ``[c_out]``."""
+    ``w_bf16`` ``[c_out, c_in, 3, 3]`` (OIHW, bf16; #9 and the plain
+    versions), ``w_packed`` ``[c_out_pad, 9, c_in_pad]`` (bf16, K-major: tap
+    ``3·ky + kx``, then input channel; zeros in the padding; #8) and
+    ``bias`` f32 ``[c_out]``."""
 
     w_bf16: torch.Tensor
     bias: torch.Tensor
+    w_packed: torch.Tensor
 
     @property
     def c_in(self) -> int:
@@ -60,8 +76,38 @@ def pack_conv(weight: torch.Tensor, bias: torch.Tensor, bn=None, device=None) ->
     if bn is not None:
         a, shift = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
         w, b = w * a[:, None, None, None].float(), b * a.float() + shift.float()
-    return ConvPack(w_bf16=w.to(device=device, dtype=torch.bfloat16).contiguous(),
-                    bias=b.to(device=device, dtype=torch.float32).contiguous())
+    w_bf16 = w.to(device=device, dtype=torch.bfloat16).contiguous()
+    return ConvPack(w_bf16=w_bf16, bias=b.to(device=device, dtype=torch.float32).contiguous(),
+                    w_packed=pack_kmajor(w_bf16))
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pack_kmajor(w_bf16: torch.Tensor) -> torch.Tensor:
+    """OIHW ``[c_out, c_in, 3, 3]`` → ``[c_out_pad, 9, c_in_pad]``: row ``o``
+    holds output channel ``o``'s 9 taps (``3·ky + kx``) of ``c_in_pad``
+    input channels, c_out padded to :data:`C_OUT_ALIGN`, c_in to
+    :data:`K_CHUNK`, zeros in the padding."""
+    c_out, c_in = w_bf16.shape[:2]
+    out = w_bf16.new_zeros((_round_up(c_out, C_OUT_ALIGN), 9, _round_up(c_in, K_CHUNK)))
+    out[:c_out, :, :c_in] = w_bf16.permute(0, 2, 3, 1).reshape(c_out, 9, c_in)
+    return out
+
+
+def launch_error(x_shape: Sequence[int], c_out: int) -> Optional[str]:
+    """Why #8's kernel cannot take an NCHW x of ``x_shape`` with ``c_out``
+    outputs, or None: an empty or non-4-D shape, a batch past the NHWC
+    pass's grid (65535), or an image past its 32-bit pixel index."""
+    if len(x_shape) != 4 or min(x_shape) <= 0 or c_out <= 0:
+        return f"x {tuple(x_shape)} with c_out {c_out} is not a non-empty NCHW conv"
+    bsz, _, h, w = x_shape
+    if bsz > _build.MAX_GRID_YZ:
+        return f"batch {bsz} outside 1..{_build.MAX_GRID_YZ}"
+    if h * w >= 2**31:
+        return f"a {h}x{w} image exceeds the kernel's 32-bit pixel index"
+    return None
 
 
 # The TPU kernel's pack reorders the taps for its column-polyphase stack
@@ -103,13 +149,19 @@ def conv3x3(x: torch.Tensor, pack: ConvPack, relu: bool = True) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3x3_plain(x, pack, relu)
     _check(x, pack, "conv3x3")
+    why = launch_error(x.shape, pack.c_out)
+    if why:
+        raise ValueError(f"conv3x3: {why}")
+    c_out_pad, _, c_in_pad = pack.w_packed.shape
+    _build.require(pack.w_packed, "w_packed", torch.bfloat16,
+                   (_round_up(pack.c_out, C_OUT_ALIGN), 9, _round_up(pack.c_in, K_CHUNK)))
     bsz, c_in, h, w = x.shape
-    n_og = -(-pack.c_out // (4 if pack.c_out <= 4 else 32))  # the kernel's gridDim.z is batch x groups
-    _build.require_batch(bsz * n_og, "conv3x3")
+    xt = torch.empty((bsz, h, w, _round_up(c_in, 8)), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((bsz, pack.c_out, h, w), dtype=x.dtype, device=x.device)
     err = _build.load().mdie_conv3x3(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), bsz, c_in, h, w, pack.w_bf16.data_ptr(),
-        pack.bias.data_ptr(), pack.c_out, int(relu), out.data_ptr(), _build.stream_of(x),
+        x.data_ptr(), int(x.dtype == torch.float32), bsz, c_in, h, w, xt.data_ptr(),
+        pack.w_packed.data_ptr(), c_in_pad, c_out_pad, pack.bias.data_ptr(), pack.c_out,
+        int(relu), out.data_ptr(), _build.stream_of(x),
     )
     _build.check(err, "conv3x3")
     conv3x3.launches += 1

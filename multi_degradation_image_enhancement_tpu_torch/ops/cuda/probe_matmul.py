@@ -10,20 +10,23 @@ K, N]``, in one of the probe's two type sets:
 
 :func:`probe_matmul` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises; ``probe_matmul.launches``
-counts one per launch.  The kernel takes M and N in multiples of 128 and K in
-multiples of 32, as the probe's shapes are.
+counts one per launch.  What the kernel takes is :func:`launch_error`'s:
+bf16 (wgmma fed by TMA) any M and K and N multiples of 8, the TMA maps'
+16-byte row strides; int8 (``mma.sync``) M and N multiples of 128, K of 32,
+at most 65535 blocks.
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
 
 OUT_DTYPE = {torch.bfloat16: torch.bfloat16, torch.int8: torch.int32}
-_K_STEP = 32  # elements of K per pipeline stage
+_INT8_MN, _INT8_K = 128, 32  # the int8 kernel's output tile and K step
 
 
 @contextlib.contextmanager
@@ -54,6 +57,23 @@ def probe_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.bmm(a.float(), b.float()).to(OUT_DTYPE[a.dtype])
 
 
+def launch_error(dtype: torch.dtype, batch: int, m: int, k: int, n: int) -> Optional[str]:
+    """Why the kernel cannot take ``[batch, m, k] @ [batch, k, n]`` of
+    ``dtype``, or None.  bf16: rows of a, b and o are TMA strides, so K and N
+    are multiples of 8 (16 bytes); int8: the tile grid's multiples."""
+    if min(batch, m, k, n) <= 0:
+        return f"empty shape batch={batch} M={m} K={k} N={n}"
+    if dtype == torch.bfloat16:
+        if k % 8 or n % 8:
+            return f"bf16 K={k} and N={n} must be multiples of 8 (16-byte TMA row strides)"
+        return None
+    if m % _INT8_MN or n % _INT8_MN or k % _INT8_K:
+        return (f"int8 M={m} and N={n} must be multiples of {_INT8_MN}, K={k} of {_INT8_K}")
+    if batch > _build.MAX_GRID_YZ:
+        return f"int8 batch {batch} outside 1..{_build.MAX_GRID_YZ}"
+    return None
+
+
 def probe_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``o[i] = a[i] @ b[i]``: bf16 → bf16 (f32 accumulation) or int8 → int32.
     CPU: the plain version; CUDA: one kernel launch."""
@@ -62,14 +82,13 @@ def probe_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return probe_matmul_plain(a, b)
     bsz, m, k = a.shape
     n = b.shape[2]
-    if m % 128 or n % 128 or k % _K_STEP:
-        raise ValueError(f"probe_matmul: M={m} and N={n} must be multiples of 128, K={k} of "
-                         f"{_K_STEP}")
+    why = launch_error(a.dtype, bsz, m, k, n)
+    if why:
+        raise ValueError(f"probe_matmul: {why}")
     for name, t in (("a", a), ("b", b)):
         _build.require(t, name, a.dtype)
         if t.data_ptr() % 16:
             raise ValueError(f"probe_matmul: {name} must be 16-byte aligned")
-    _build.require_batch(bsz, "probe_matmul")
     out = torch.empty((bsz, m, n), dtype=OUT_DTYPE[a.dtype], device=a.device)
     err = _build.load().mdie_probe_matmul(
         a.data_ptr(), b.data_ptr(), int(a.dtype == torch.int8), bsz, m, k, n, out.data_ptr(),

@@ -16,13 +16,14 @@ it:
 
 The JAX package stacks the experts on an expert axis and routes with one-hot
 dispatch and combine einsums so that one jitted program runs the bank; here
-each expert is its own serving forward (``models.cdan_fast.
-build_serving_apply``: on the card, the CUDA DenseBlock), and the rows routed
-to it are gathered, restored and scattered back.  The result is the same:
-each one-hot sum has a single 1.0 term per row, exact in f32, and the eval
-forward treats every image on its own.  An expert with no row to restore is
-not run.  The expert-parallel mesh of the JAX package (``pipeline.py:100-120``)
-is not ported.
+each expert is its own forward, and the rows routed to it are gathered,
+restored and scattered back.  The result is the same: each one-hot sum has a
+single 1.0 term per row, exact in f32, and the eval forward treats every
+image on its own.  An expert with no row to restore is not run.  Each
+expert's forward is the one the JAX pipeline applies: the eval module with
+unfused DenseBlocks (``models.cdan.eval_forward``; bf16 autocast on the
+card), not the fused serving forward.  The expert-parallel mesh of the JAX
+package (``pipeline.py:100-120``) is not ported.
 """
 
 from __future__ import annotations
@@ -38,8 +39,7 @@ from multi_degradation_image_enhancement_tpu_torch.classification.model import (
     IMAGENET_STD,
 )
 from multi_degradation_image_enhancement_tpu_torch.engine.checkpoint import load_weights
-from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
-from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_serving_apply
+from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN, eval_forward
 from multi_degradation_image_enhancement_tpu_torch.ops.degradations import DEGRADATIONS
 
 Forward = Callable[[torch.Tensor], torch.Tensor]
@@ -49,17 +49,19 @@ CLEAN, DROPPED = -1, -2
 
 
 def load_expert_bank(weight_paths: Dict[str, str], device, dtype) -> Tuple[List[str], List[Forward]]:
-    """Load each expert's ``CDAN_<task>.pt`` strictly and build its serving
-    forward.  ``weight_paths`` maps degradation name → weight file; returns
-    (expert order, forwards)."""
+    """Load each expert's ``CDAN_<task>.pt`` strictly onto ``device`` and
+    build its forward: the eval module in ``dtype`` (``eval_forward``: every
+    DenseBlock unfused, a bf16 autocast for bf16), as the JAX pipeline
+    applies ``CDAN(dtype)`` (``pipeline.py:125-126``).  ``weight_paths``
+    maps degradation name → weight file; returns (expert order, forwards)."""
     names = list(weight_paths)
     forwards = []
     for name in names:
         path = weight_paths[name]
         if not os.path.isfile(path):
             raise FileNotFoundError(f"Expert '{name}' weights not found: {path}")
-        model = load_weights(path, CDAN()).eval()
-        forwards.append(build_serving_apply(model, dtype, device))
+        model = load_weights(path, CDAN()).to(device).eval()
+        forwards.append(eval_forward(model, dtype))
     return names, forwards
 
 

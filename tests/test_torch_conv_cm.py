@@ -4,7 +4,10 @@ tests/test_pallas_kernels.py: #8 ``conv3x3_cm`` and #9 ``conv3x3_pool_cm``
 (the latter on its column-deinterleaved, 8-channel-padded operand).
 
 On the CPU the wrappers run their plain versions; the CUDA kernels are held
-to those plain versions on the card by ``chip_smoke.py``.
+to those plain versions on the card by ``chip_smoke.py``.  What the CPU can
+reach of #8's tensor-core kernel is tested here: its K-major weight pack,
+its implicit-GEMM index algebra (a tap-by-tap model over the pack) and the
+launch predicate that names the shapes it does not take.
 """
 
 import jax
@@ -25,9 +28,12 @@ from multi_degradation_image_enhancement_tpu.ops.pallas.conv_pool_cm import (
     pack_conv_pool as jax_pack_conv_pool,
 )
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
+    C_OUT_ALIGN,
+    K_CHUNK,
     conv3x3,
     conv3x3_plain,
     conv3x3_pool,
+    launch_error,
     pack_conv,
     pack_conv_pool,
 )
@@ -159,3 +165,77 @@ def test_plain_path_counts_no_launch_and_refuses_grad():
             fn(xg, pack)
     assert torch.equal(conv3x3_plain(_nchw(x), pack, relu=False),
                        conv3x3(_nchw(x), pack, relu=False))
+
+
+KMAJOR_SHAPES = [(c_out, c_in) for c_out in (3, 64, 128) for c_in in (64, 72)]
+
+
+@pytest.mark.parametrize("c_out,c_in", KMAJOR_SHAPES)
+def test_kmajor_pack_unpacks_to_the_oihw_weights(c_out, c_in):
+    """#8's ``w_packed`` ``[c_out_pad, 9, c_in_pad]``: c_out padded to 8 (the
+    ``wgmma`` N granule), c_in to the 64-channel K step, zeros in the
+    padding, and the OIHW ``w_bf16`` back exactly."""
+    _, k, b = _inputs(9, 1, 1, 1, c_in, c_out)
+    pack = pack_conv(_oihw(k), torch.from_numpy(b))
+    c_out_pad, c_in_pad = -(-c_out // C_OUT_ALIGN) * C_OUT_ALIGN, -(-c_in // K_CHUNK) * K_CHUNK
+    assert pack.w_packed.shape == (c_out_pad, 9, c_in_pad)
+    assert pack.w_packed.dtype == torch.bfloat16 and pack.w_packed.is_contiguous()
+    unpacked = pack.w_packed[:c_out, :, :c_in].reshape(c_out, 3, 3, c_in).permute(0, 3, 1, 2)
+    assert torch.equal(unpacked, pack.w_bf16)
+    assert not pack.w_packed[c_out:].any() and not pack.w_packed[:, :, c_in:].any()
+    # tap 3·ky + kx, then input channel: entry [o, t, c] is w[o, c, ky, kx]
+    assert torch.equal(pack.w_packed[c_out - 1, 5, c_in - 1], pack.w_bf16[c_out - 1, c_in - 1, 1, 2])
+
+
+def _tap_gemm(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor, c_out: int) -> torch.Tensor:
+    """#8's implicit GEMM written out (M = pixels, N = c_out_pad, K = 9 taps
+    × c_in_pad).  The NHWC pass rounds x to bf16 into [B, H, W, c_t], c_t =
+    c_in rounded up to 8, zeros past c_in.  K steps walk 64-channel chunks,
+    each through the nine taps; step (chunk, tap 3·ky + kx) reads the NHWC
+    operand at pixel (h + ky − 1, w + kx − 1) and channels chunk..chunk + 63,
+    zero outside the image and past c_t (the TMA map's bounds), against the
+    pack's [n, tap, chunk] slice; then the f32 bias and the ReLU."""
+    bsz, c_in, h, w = x.shape
+    c_out_pad, _, c_in_pad = w_packed.shape
+    c_t = -(-c_in // 8) * 8
+    xt = torch.zeros((bsz, h, w, c_t), dtype=torch.float32)
+    xt[..., :c_in] = x.to(torch.bfloat16).float().permute(0, 2, 3, 1)
+    box = torch.zeros((bsz, h + 2, w + 2, c_in_pad), dtype=torch.float32)  # the map's zero fill
+    box[:, 1:-1, 1:-1, :c_t] = xt
+    acc = torch.zeros((bsz * h * w, c_out_pad), dtype=torch.float32)
+    for ks in range(9 * c_in_pad // K_CHUNK):
+        c0, tap = ks // 9 * K_CHUNK, ks % 9
+        ky, kx = divmod(tap, 3)
+        a = box[:, ky:ky + h, kx:kx + w, c0:c0 + K_CHUNK].reshape(-1, K_CHUNK)
+        acc += a @ w_packed[:, tap, c0:c0 + K_CHUNK].float().T
+    out = torch.relu(acc[:, :c_out] + bias)
+    return out.reshape(bsz, h, w, c_out).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("hw", [(32, 34), (37, 53)])
+@pytest.mark.parametrize("c_out,c_in", KMAJOR_SHAPES)
+def test_tap_gemm_over_the_pack_matches_plain(c_out, c_in, hw):
+    """The index algebra of #8's kernel, modelled tap by tap over the K-major
+    pack, against ``conv3x3_plain`` in f32 (only the order of f32 sums
+    differs): ≤ 1e-5."""
+    x, k, b = _inputs(10, 2, *hw, c_in, c_out)
+    pack = pack_conv(_oihw(k), torch.from_numpy(b))
+    got = _tap_gemm(_nchw(x), pack.w_packed, pack.bias, c_out)
+    want = conv3x3_plain(_nchw(x), pack)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_conv_launch_predicate_rejects_what_the_kernel_does_not_take():
+    """#8 reads x through an NHWC pass of its own, so any width and channel
+    count reaches the kernel (rows of 34 pixels, 72 channels); it refuses
+    only an empty or non-4-D x, a batch past the pass's grid and an image
+    past its 32-bit pixel index."""
+    assert launch_error((128, 64, 128, 128), 128) is None
+    assert launch_error((1, 72, 37, 53), 3) is None
+    assert launch_error((1, 64, 32, 34), 64) is None
+    assert "non-empty" in launch_error((0, 64, 32, 32), 64)
+    assert "non-empty" in launch_error((1, 64, 32, 32), 0)
+    assert "non-empty" in launch_error((64, 32, 32), 64)
+    assert "batch" in launch_error((65536, 8, 8, 8), 8)
+    assert "32-bit" in launch_error((1, 8, 65536, 32768), 8)

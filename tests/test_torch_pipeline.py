@@ -9,6 +9,10 @@
   on the same weights: probabilities within 1e-4, the same route for every
   image, passthrough images bit-equal, restored images within the fused
   forward's tolerance (tests/test_cdan_fast.py:36: max 2e-2, mean 2e-3);
+* the expert bank in bf16 on the CPU (the eval module under autocast, the
+  JAX pipeline's route) against the JAX bank of ``CDAN(dtype=bfloat16)``,
+  held to twice the JAX bank's own bf16-vs-f32 distance, beside the fused
+  forward's distance; ``load_expert_bank`` builds the module route;
 * ``resolve_thresholds`` and the u8 conversion of the CLI.
 """
 
@@ -34,14 +38,27 @@ from multi_degradation_image_enhancement_tpu.pipeline import (
 from multi_degradation_image_enhancement_tpu_torch import run_pipeline
 from multi_degradation_image_enhancement_tpu_torch.data.streaming import decode_chunk
 from multi_degradation_image_enhancement_tpu_torch.ops.degradations import DEGRADATIONS
-from multi_degradation_image_enhancement_tpu_torch.pipeline import CLEAN, DROPPED, RoutedRestorer
+from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_serving_apply
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
+from multi_degradation_image_enhancement_tpu_torch.pipeline import (
+    CLEAN,
+    DROPPED,
+    RoutedRestorer,
+    load_expert_bank,
+)
 from multi_degradation_image_enhancement_tpu_torch.utils.jax_port import (
     classifier_mapping,
     convert_entries,
     state_dict_to_flax,
 )
 from tests.tiny_net import TinyNet
-from tests.torch_pipeline_cli import HW, cli_args, write_thresholds, write_tiny_pipeline
+from tests.torch_pipeline_cli import (
+    EXPERTS,
+    HW,
+    cli_args,
+    write_thresholds,
+    write_tiny_pipeline,
+)
 
 NAMES = ["noise", "blur", "low_light"]
 
@@ -241,6 +258,85 @@ def test_cli_matches_jax_full_pipeline(tmp_path, mode, ordering):
             d = np.abs(got_u8[i].astype(np.float64) - want_u8[i]) / 255.0
             assert d.max() <= 2e-2 and d.mean() <= 2e-3, (i, d.max(), d.mean())
             assert (got_u8[i] != u8[i]).any()  # an expert did run
+
+
+def _bank_paths(paths) -> dict:
+    return {n: str(paths["weights"] / f"CDAN_{n}.pt") for n in EXPERTS}
+
+
+def test_expert_bank_bf16_matches_jax_bank(tmp_path):
+    """The bank in bf16 against the JAX pipeline's, sequential ``fixed`` (every
+    expert over the whole batch, each on the last one's output), on the same
+    images and probabilities.  The floor is the JAX bank's own distance
+    between ``CDAN(dtype=bfloat16)`` and ``CDAN(dtype=float32)``; the port is
+    held to twice it (the rule tests/test_torch_train.py holds the fused
+    train step to).  Measured at
+    4×32×48: floor max 5.46e-3, mean 9.76e-4; the module route max 5.50e-3,
+    mean 1.14e-3 from JAX's bf16 bank; the fused serving forward, which the
+    bank ran before, max 5.97e-3, mean 1.18e-3.  On the CPU the two bf16
+    routes sit about as far from JAX's bf16 rounding as bf16 sits from f32;
+    the route, not this distance, is what the repair fixes (the card's
+    phase 24 of chip_smoke.py measures what it changes there)."""
+    paths = write_tiny_pipeline(tmp_path)
+    names = list(EXPERTS)
+    x = np.random.RandomState(1).rand(4, *HW, 3).astype(np.float32)
+    probs = np.full((4, len(names)), 0.9, np.float32)
+    thr = [0.5] * len(names)
+
+    bank = stack_expert_variables(
+        [state_dict_to_flax(paths["experts"][n].state_dict()) for n in names])
+    want = {}
+    for dt in (jnp.bfloat16, jnp.float32):
+        router = JaxRoutedRestorer(JaxCDAN(dtype=dt), names, bank, mode="sequential",
+                                   ordering="fixed")
+        want[dt] = np.asarray(router(jnp.asarray(x), jnp.asarray(probs), thr))
+    floor = np.abs(want[jnp.bfloat16] - want[jnp.float32])
+
+    def run(forwards):
+        router = RoutedRestorer(forwards, names, mode="sequential", ordering="fixed")
+        out = router(torch.from_numpy(x), torch.from_numpy(probs), thr)
+        return np.abs(out.numpy() - want[jnp.bfloat16])
+
+    got_names, forwards = load_expert_bank(_bank_paths(paths), "cpu", torch.bfloat16)
+    assert got_names == names
+    err = run(forwards)
+    fused = run([build_serving_apply(paths["experts"][n], torch.bfloat16, "cpu") for n in names])
+    report = (f"floor max {floor.max():.3e} mean {floor.mean():.3e}; module max {err.max():.3e} "
+              f"mean {err.mean():.3e}; fused max {fused.max():.3e} mean {fused.mean():.3e}")
+    assert floor.max() > 0, report  # bf16 did round
+    assert err.max() <= 2 * floor.max() and err.mean() <= 2 * floor.mean(), report
+
+
+def test_load_expert_bank_builds_the_module_route(tmp_path, monkeypatch):
+    """Each expert is the eval module (unfused DenseBlocks) on the device:
+    f32 on the CPU equals ``model(x)`` bit for bit, bf16 runs it under a bf16
+    autocast (convolutions in bf16), and no DenseBlock kernel is reached."""
+    from multi_degradation_image_enhancement_tpu_torch.models import cdan as cdan_mod
+
+    paths = write_tiny_pipeline(tmp_path)
+    x = torch.from_numpy(np.random.RandomState(2).rand(2, *HW, 3).astype(np.float32))
+    n0 = dense_block.launches
+    names, forwards = load_expert_bank(_bank_paths(paths), "cpu", torch.float32)
+    for name, forward in zip(names, forwards):
+        model = paths["experts"][name]
+        assert not model.fused_dense
+        with torch.no_grad():
+            assert torch.equal(forward(x), model(x))
+
+    seen = []
+    conv_forward = cdan_mod.nn.Conv2d._conv_forward
+
+    def spy(self, t, w, b):
+        y = conv_forward(self, t, w, b)
+        seen.append(y.dtype)
+        return y
+
+    monkeypatch.setattr(cdan_mod.nn.Conv2d, "_conv_forward", spy)
+    _, forwards = load_expert_bank(_bank_paths(paths), "cpu", torch.bfloat16)
+    out = forwards[0](x)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    assert seen and set(seen) == {torch.bfloat16}
+    assert dense_block.launches == n0
 
 
 def test_stream_restore_raises_a_decode_error(tmp_path):

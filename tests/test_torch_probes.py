@@ -19,7 +19,10 @@ from jax.experimental import pallas as pl
 
 from benchmarks.exp_int8_reprobe import _mm_kernel
 from benchmarks.exp_io_transpose import kernel_jnpT, kernel_lhsT, kernel_rhsT
-from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_matmul import probe_matmul
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_matmul import (
+    launch_error,
+    probe_matmul,
+)
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_transpose import (
     m_dot_xt,
     transpose,
@@ -136,3 +139,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         m_dot_xt(torch.zeros(1, 8, 32, dtype=torch.bfloat16), torch.eye(64, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="bfloat16"):
         transpose(torch.zeros(1, 4, 4))
+
+
+def test_matmul_launch_predicate():
+    """What #11's two kernels take: bf16 (TMA-fed ``wgmma``) any M, K and N
+    multiples of 8 (the maps' 16-byte row strides; ragged tiles read zeros
+    and clip their stores); int8 (``mma.sync``) M and N multiples of 128, K
+    of 32, at most 65535 batch entries (the grid's z)."""
+    bf16, i8 = torch.bfloat16, torch.int8
+    assert launch_error(bf16, 32, 1536, 512, 2048) is None  # the probe's shape
+    assert launch_error(bf16, 3, 256, 96, 384) is None
+    assert launch_error(bf16, 2, 200, 40, 72) is None
+    assert "multiples of 8" in launch_error(bf16, 1, 64, 36, 64)
+    assert "multiples of 8" in launch_error(bf16, 1, 64, 64, 60)
+    assert launch_error(i8, 32, 1536, 512, 2048) is None
+    assert launch_error(i8, 3, 256, 96, 384) is None
+    assert "multiples of 128" in launch_error(i8, 2, 200, 64, 128)
+    assert "multiples of 128" in launch_error(i8, 2, 128, 48, 128)
+    assert "batch" in launch_error(i8, 65536, 128, 32, 128)
+    assert "empty" in launch_error(bf16, 0, 128, 32, 128)
