@@ -66,9 +66,10 @@ line per phase, and exits non-zero at the first failure:
     call's time;
 23. the probe kernels #11-#14 (``ops.cuda.probe_matmul``,
     ``ops.cuda.probe_transpose``) at the probes' shapes vs their plain
-    versions, then the two probe scripts (``benchmarks/exp_int8_reprobe.py``,
+    versions, #12/#13 also at ragged P and above the 65535 grid cap, then
+    the two probe scripts (``benchmarks/exp_int8_reprobe.py``,
     ``exp_io_transpose.py``) with the launch counters reset: kernel, plain
-    and library ms;
+    and library ms, and for #12/#13 the bound and the probe's copy time;
 24. the routed serving pipeline: nine full-width experts, a full-width
     ResNet-18 classifier and 64 degraded PNGs at 256x384 written to
     ``build/chip_smoke_pipeline/``; the CLI ``run_pipeline`` in top1 and
@@ -122,6 +123,9 @@ BENCH_STEPS, EVAL_STEPS = 5, 3
 TEST_IMAGES = 64  # the -p test phases score 64 of the test block's 128 images
 PHOTO_HW, PHOTO_IMAGES = (480, 640), 32  # a size where the JAX package takes _run_cm (#3)
 PROBE_ITERS = 20  # timed calls of each route in the probe scripts (phase 23)
+# (batch, P) of #12/#13's extra checks: ragged last tiles (1000 = 7 * 128 + 104;
+# 40 leaves a 64-pixel box wholly past P) and a batch above the 65535 grid cap
+RAGGED_PRODUCTS = ((3, 1000), (5, 40), (65537, 8))
 PIPE_IMAGES, PIPE_BATCH = 64, 32  # the routed pipeline's directory and batch (phase 24)
 # (layer, c_in, c_out, (H, W)) of the CM forward's 3x3 convs at B=128·256².
 CM_CONVS = [("conv2", 64, 128, (128, 128)), ("conv3", 128, 256, (64, 64)),
@@ -1248,11 +1252,12 @@ def phase_probes(torch, smi):
     """Phase 23: the probe kernels #11-#14 at the probes' shapes, each held
     against its plain version: the int8 GEMM and the transposes (``M = I``
     for #12/#13) bit for bit; #12/#13 with a seeded random M (U(-1, 1)) within
-    one bf16 ulp of the largest output (2**-7 * max|ref|); the bf16 GEMM on
-    positive operands within 2 bf16 ulp relative (|d| <= 2**-6 * |ref|); both
-    GEMM types at 3 x [256,96] @ [96,384] too (ragged K and N tiles).
-    Then the main path: both probe scripts with every count reset before.
-    Returns per kernel its error, plain ms, kernel ms, library ms, launches."""
+    one bf16 ulp of the largest output (2**-7 * max|ref|), and both checks
+    again at ``RAGGED_PRODUCTS``; the bf16 GEMM on positive operands within
+    2 bf16 ulp relative (|d| <= 2**-6 * |ref|); both GEMM types at 3 x
+    [256,96] @ [96,384] too (ragged K and N tiles).  Then the main path:
+    both probe scripts with every count reset before.  Returns per kernel
+    its error, plain ms, kernel ms, library ms, launches."""
     from multi_degradation_image_enhancement_tpu_torch.benchmarks import (
         exp_int8_reprobe, exp_io_transpose,
     )
@@ -1315,6 +1320,19 @@ def phase_probes(torch, smi):
         rec[name] = {"max_abs_err": err, "plain_ms": cuda_ms(lambda: plain(xi, eye), 5),
                      "library_ms": cuda_ms(lambda: lib(xi, eye), 20)}
         del got, ref
+    for bsz, p in RAGGED_PRODUCTS:
+        for name, kern, plain, shape in (("m_dot_xt", m_dot_xt, m_dot_xt_plain, (bsz, p, 64)),
+                                         ("xt_dot_m", xt_dot_m, xt_dot_m_plain, (bsz, 64, p))):
+            xi = torch.rand(shape, generator=g, device="cuda").to(torch.bfloat16)
+            got = kern(xi, eye)
+            require(torch.equal(got, plain(xi, eye)) and torch.equal(got, xi.transpose(1, 2)),
+                    f"{name} {shape} with M = I is the transpose, bit for bit")
+            got, ref = kern(xi, m_rand).float(), plain(xi, m_rand).float()
+            err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+            say("probes", f"{name} {shape} bf16: M = I bit-exact; random M max abs {err:.3e} "
+                f"(limit 2**-7 * {scale:.3f} = {2.0**-7 * scale:.3e})")
+            require(err <= 2.0**-7 * scale, f"{name} {shape} with a random M vs plain")
+            del xi, got, ref
     require(torch.equal(transpose(x), transpose_plain(x)), "transpose bit for bit")
     say("probes", f"transpose {tuple(x.shape)} bf16: bit-exact")
     rec["transpose"] = {"max_abs_err": 0.0, "plain_ms": cuda_ms(lambda: transpose_plain(x), 20)}
@@ -1340,6 +1358,13 @@ def phase_probes(torch, smi):
                         ("in-kernel .T", "transpose")):
         rec[name].update(ms=io[route]["ms"], launches=launches[name])
     rec["transpose"]["library_ms"] = io["library transpose"]["ms"]
+    work, copy_ms = probe_work(), io["copy (bw ref)"]["ms"]
+    for name in ("m_dot_xt", "xt_dot_m"):
+        r = rec[name]
+        b_ms, b_by = bound(*work[name])
+        say("probes", f"[{smi}] {name}: kernel {r['ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} ms "
+            f"(kernel/library {r['ms'] / r['library_ms']:.3f}), bound {b_ms:.4f} ms by {b_by} "
+            f"(share {b_ms / r['ms']:.1%}), copy (bw ref) {copy_ms:.4f} ms")
     return rec
 
 

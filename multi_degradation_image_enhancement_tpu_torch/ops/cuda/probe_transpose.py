@@ -13,13 +13,16 @@ Counterparts of the three kernels of ``benchmarks/exp_io_transpose.py``
 
 The products accumulate in f32 and round once to bf16, for any ``M``; with
 ``M = I``, what the probe feeds, they are transposes, exactly.  Each wrapper
-takes its plain version only for tensors on the CPU; for CUDA tensors it
+takes its plain version only for tensors on the CPU; for any other tensor it
 launches its kernel or raises, and its ``launches`` counts one per launch.
-The kernels take P in multiples of 128 (the products) or P and C even (the
-transpose).
+What the products' kernels (persistent, TMA in and out, ``wgmma``) take is
+:func:`product_launch_error`'s: any batch and any P that is a multiple of 8;
+the transpose takes P and C even.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -37,14 +40,27 @@ def _check_products(x: torch.Tensor, m: torch.Tensor, k_axis: int, name: str) ->
                          f"(axis {k_axis} of x and both sides of M must be {K})")
 
 
+def product_launch_error(batch: int, p: int) -> Optional[str]:
+    """Why the product kernels (#12, #13) cannot take ``batch`` images of
+    ``p`` pixels (C = 64), or None.  The rows of x or o that run along P are
+    TMA strides, so P is a multiple of 8 (16 bytes); a ragged last tile reads
+    zeros and clips its store.  The persistent grid walks the (image, tile)
+    space, so the batch has no cap of its own."""
+    if batch <= 0 or p <= 0:
+        return f"empty shape batch={batch} P={p}"
+    if p % 8:
+        return f"P={p} must be a multiple of 8 (16-byte TMA row strides)"
+    return None
+
+
 def _launch_product(fn_name: str, x: torch.Tensor, m: torch.Tensor, p: int, out_shape, name: str):
-    if p % 128:
-        raise ValueError(f"{name}: P={p} must be a multiple of 128")
+    why = product_launch_error(x.shape[0], p)
+    if why:
+        raise ValueError(f"{name}: {why}")
     for label, t in (("x", x), ("M", m)):
         _build.require(t, label, torch.bfloat16)
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} must be 16-byte aligned")
-    _build.require_batch(x.shape[0], name)
     out = torch.empty(out_shape, dtype=torch.bfloat16, device=x.device)
     err = getattr(_build.load(), fn_name)(
         x.data_ptr(), m.data_ptr(), x.shape[0], p, out.data_ptr(), _build.stream_of(x))

@@ -25,6 +25,7 @@ from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_matmul import 
 )
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_transpose import (
     m_dot_xt,
+    product_launch_error,
     transpose,
     xt_dot_m,
 )
@@ -91,9 +92,10 @@ def _bf16_pair(arr):
     return j, torch.from_numpy(np.asarray(j.astype(jnp.float32))).to(torch.bfloat16)
 
 
+@pytest.mark.parametrize("p", [P, 200])  # 200: a multiple of 8, not of the kernels' 128-pixel tile
 @pytest.mark.parametrize("route", ["rhsT", "lhsT"])
 @pytest.mark.parametrize("m_kind", ["identity", "random"])
-def test_products_match_probe_bodies(route, m_kind):
+def test_products_match_probe_bodies(route, m_kind, p):
     """``M · xᵀ`` and ``xᵀ · M``: with M = I a transpose, bit for bit; with a
     seeded random M (U(-1, 1)) within one bf16 ulp of the largest output
     (2**-7 * max|o|): f32 sums in another order may move one rounding."""
@@ -101,12 +103,12 @@ def test_products_match_probe_bodies(route, m_kind):
     m = np.eye(C, dtype=np.float32) if m_kind == "identity" else rng.uniform(-1, 1, (C, C))
     jm, tm = _bf16_pair(m)
     if route == "rhsT":
-        jx, tx = _bf16_pair(rng.rand(B, P, C))
-        want = _jax_product(kernel_rhsT, jx, jm, (1, P, C), (1, C, P), (B, C, P))
+        jx, tx = _bf16_pair(rng.rand(B, p, C))
+        want = _jax_product(kernel_rhsT, jx, jm, (1, p, C), (1, C, p), (B, C, p))
         got = m_dot_xt(tx, tm)
     else:
-        jx, tx = _bf16_pair(rng.rand(B, C, P))
-        want = _jax_product(kernel_lhsT, jx, jm, (1, C, P), (1, P, C), (B, P, C))
+        jx, tx = _bf16_pair(rng.rand(B, C, p))
+        want = _jax_product(kernel_lhsT, jx, jm, (1, C, p), (1, p, C), (B, p, C))
         got = xt_dot_m(tx, tm)
     want = np.asarray(want.astype(jnp.float32))
     got = got.float().numpy()
@@ -139,6 +141,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         m_dot_xt(torch.zeros(1, 8, 32, dtype=torch.bfloat16), torch.eye(64, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="bfloat16"):
         transpose(torch.zeros(1, 4, 4))
+    # Only a CPU tensor takes the plain version: any other (a meta tensor
+    # here, no card needed) goes to the kernel's checks and is refused.
+    eye = torch.eye(64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        m_dot_xt(torch.empty(1, 100, 64, dtype=torch.bfloat16, device="meta"), eye)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        xt_dot_m(torch.empty(1, 64, 100, dtype=torch.bfloat16, device="meta"), eye)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        xt_dot_m(torch.empty(1, 64, 200, dtype=torch.bfloat16, device="meta"), eye)
 
 
 def test_matmul_launch_predicate():
@@ -158,3 +169,24 @@ def test_matmul_launch_predicate():
     assert "multiples of 128" in launch_error(i8, 2, 128, 48, 128)
     assert "batch" in launch_error(i8, 65536, 128, 32, 128)
     assert "empty" in launch_error(bf16, 0, 128, 32, 128)
+
+
+@pytest.mark.parametrize("batch, p, why", [
+    (128, 16384, None),      # the probe's shape
+    (3, 1000, None),         # a ragged last tile (1000 = 7 * 128 + 104)
+    (5, 40, None),           # one tile, its second 64-pixel half wholly past P
+    (65536, 8, None),        # above the 65535 grid cap: the persistent grid has none
+    (2, 100, "multiple of 8"),
+    (2, 1004, "multiple of 8"),
+    (0, 256, "empty"),
+    (2, 0, "empty"),
+])
+def test_product_launch_predicate(batch, p, why):
+    """What #12's and #13's kernels take: any batch and any P that is a
+    multiple of 8 (the TMA maps' 16-byte row strides along P; a ragged last
+    tile reads zeros and clips its store)."""
+    got = product_launch_error(batch, p)
+    if why is None:
+        assert got is None
+    else:
+        assert why in got
