@@ -11,12 +11,18 @@ line per phase, and exits non-zero at the first failure:
 3. noise kernel vs its plain version on the kernel's own Philox bits (the
    contract of tests/test_noise_kernel.py at B=4·64×256, then the serving
    shapes);
-4. DenseBlock kernel (bf16) vs its plain version (f32) at the eight block
-   shapes of the B=128·256² and B=16·256×384 forwards;
+4. DenseBlock kernels (bf16) vs their plain version (f32) at the eight block
+   shapes of the B=128·256² and B=16·256×384 forwards, a ragged B=1 33×47
+   image, growth 12, f32 I/O and both NHWC entries (#3's and #10's);
 5. the bf16 serving forward with kernels vs the canonical f32 ``CDAN``;
 6. requests through ``serving.build_pipeline`` (B=128·256², then
    B=16·256×384), with launch counters showing both kernels ran;
 7. times (CUDA events): ms/step, img/s, each kernel beside its plain version;
+   each DenseBlock at B=128·256² also beside the module route (the unfused
+   ``models.cdan.DenseBlock`` under a bf16 autocast) and the bytes floor of
+   the kernels' per-layer design; then ``torch.profiler`` over 5 serving
+   steps: busy share and the shares of the DenseBlock's kernels, the
+   upsample, the convolutions and the glue;
 8. growth-train kernels (forward and backward) vs their plain version at the
    16 layer shapes of a B=16·256×384 train step, f32 I/O;
 9. a whole fp32 train step at 2×256×384, growth kernels vs plain: loss,
@@ -44,8 +50,10 @@ line per phase, and exits non-zero at the first failure:
 17. times: #8 and #9 vs plain, the CM vs the per-block forward, the eval
     step per B=16 batch, the whole ``-p test``;
 18. ``fused_dense_block`` (#10's entry) vs its plain version at the four
-    block shapes of the B=16·256×384 forward, f32 and bf16 x, 5 launches a
-    call; then its public entry on those four blocks with the counter reset;
+    block shapes of the B=16·256×384 forward, f32 and bf16 x,
+    ``LAUNCHES_PER_BLOCK`` (6) launches a call (entry pass, 4 growth layers,
+    transition); then its public entry on those four blocks with the counter
+    reset;
     its time beside ``fused_dense_block_cm`` and plain;
 19. the nine degradations at B=16·256×384 on the card vs the same function
     on the CPU with the same explicit parameters, with TF32 at PyTorch's
@@ -270,14 +278,29 @@ def phase_noise(torch):
     return worst
 
 
+def _db_check(torch, label: str, got, ref) -> float:
+    """The DenseBlock limits against plain: max <= 5e-2, mean <= 5e-3."""
+    err = (got.float() - ref.float()).abs()
+    say("dense_block", f"{label}: max {err.max().item():.3e} (limit 5e-2) mean "
+        f"{err.mean().item():.3e} (limit 5e-3)")
+    require(bool(torch.isfinite(got).all()), f"{label} finite")
+    require(err.max().item() <= 5e-2 and err.mean().item() <= 5e-3, f"{label} kernel vs plain")
+    return err.max().item()
+
+
 def phase_dense_blocks(torch, model):
+    """The DenseBlock kernels (bf16) vs their plain version (f32) at the
+    eight block shapes of the serving forwards; then a ragged B=1 33x47
+    image, growth 12, f32 I/O, and both NHWC entries (#3's, #10's) on f32
+    and bf16 x, each a call of LAUNCHES_PER_BLOCK launches."""
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import DenseBlock
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
-        dense_block, dense_block_plain, pack_dense_block,
+        LAUNCHES_PER_BLOCK, dense_block, dense_block_plain, fold_dense_block, fused_dense_block,
+        fused_dense_block_cm, pack_dense_block,
     )
 
     dev = torch.device("cuda")
-    blocks = {"dense1": model.encoder.dense1, "dense2": model.encoder.dense2,
-              "dense3": model.encoder.dense3, "final_dense": model.decoder.final_dense}
+    blocks = _cdan_blocks(model)
     packs = {name: pack_dense_block(block, dev) for name, block in blocks.items()}
     g = torch.Generator(device=dev).manual_seed(3)
     worst = 0.0
@@ -288,19 +311,40 @@ def phase_dense_blocks(torch, model):
         ref_bf16 = dense_block_plain(x, packs[name])
         torch.cuda.synchronize()
         require(got.dtype == torch.bfloat16 and got.shape == x.shape, f"{name} output dtype/shape")
-        err = (got.float() - ref).abs()
         err16 = (got.float() - ref_bf16.float()).abs().max().item()
-        worst = max(worst, err.max().item())
-        say("dense_block", f"{name} B={bsz} c={c_in} {h}x{w}: max {err.max().item():.3e} (limit 5e-2) "
-            f"mean {err.mean().item():.3e} (limit 5e-3); vs plain-bf16 max {err16:.3e}")
-        require(err.max().item() <= 5e-2 and err.mean().item() <= 5e-3,
-                f"{name} {h}x{w} kernel vs plain")
-    # f32 in/out through the same kernels (features still held in bf16).
-    x = torch.rand((2, 64, 32, 48), device=dev, generator=g)
-    err = (dense_block(x, packs["dense1"]) - dense_block_plain(x, packs["dense1"])).abs()
-    say("dense_block", f"dense1 f32 I/O 32x48: max {err.max().item():.3e} mean "
-        f"{err.mean().item():.3e}")
-    require(err.max().item() <= 5e-2 and err.mean().item() <= 5e-3, "f32 I/O kernel vs plain")
+        worst = max(worst, _db_check(torch, f"{name} B={bsz} c={c_in} {h}x{w} (vs plain-bf16 max "
+                                     f"{err16:.3e})", got, ref))
+    # growth 12 (slots padded to 16), with live statistics, at a ragged size
+    torch.manual_seed(12)
+    g12 = DenseBlock(64, growth_rate=12).eval()
+    with torch.no_grad():
+        for m in g12.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.05, 0.05)
+                m.running_var.uniform_(0.1, 0.3)
+    packs["growth12"] = pack_dense_block(g12.to(dev), dev)
+    cases = [("final_dense", torch.bfloat16, (1, 3, 33, 47)), ("dense1", torch.bfloat16, (1, 64, 33, 47)),
+             ("growth12", torch.bfloat16, (2, 64, 33, 47)), ("dense1", torch.float32, (2, 64, 32, 48)),
+             ("final_dense", torch.float32, (1, 3, 33, 47))]
+    for name, dt, shape in cases:
+        x = torch.rand(shape, device=dev, generator=g).to(dt)
+        n0 = dense_block.launches
+        got = dense_block(x, packs[name])
+        n = dense_block.launches - n0
+        require(got.dtype == dt and got.shape == x.shape and n == LAUNCHES_PER_BLOCK,
+                f"{name} {shape} {dt}: dtype, shape, {LAUNCHES_PER_BLOCK} launches")
+        worst = max(worst, _db_check(torch, f"{name} {tuple(shape)} {dt}", got,
+                                     dense_block_plain(x.float(), packs[name])))
+    for entry in (fused_dense_block_cm, fused_dense_block):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.rand((2, 33, 47, 3), device=dev, generator=g).to(dt)
+            got = entry(x, blocks["final_dense"])
+            pack = (packs["final_dense"] if entry is fused_dense_block_cm
+                    else fold_dense_block(blocks["final_dense"], dt, dev))
+            ref = dense_block_plain(x.permute(0, 3, 1, 2).float(), pack).permute(0, 2, 3, 1)
+            require(got.dtype == dt and got.shape == x.shape, f"{entry.__name__} dtype/shape")
+            worst = max(worst, _db_check(torch, f"{entry.__name__} (NHWC) final_dense 2x33x47 {dt}",
+                                         got, ref))
     return worst, packs
 
 
@@ -341,7 +385,9 @@ def phase_forward(torch, model):
 
 def phase_requests(torch):
     from multi_degradation_image_enhancement_tpu_torch import serving
-    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        LAUNCHES_PER_BLOCK, dense_block,
+    )
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.noise import noise_degrade_01
 
     step, bench_clean = serving.build_pipeline(BENCH_BATCH, BENCH_SIZE, torch.bfloat16, "cuda")
@@ -366,10 +412,10 @@ def phase_requests(torch):
         require(out.min().item() >= 0.0 and out.max().item() <= 1.0, "outputs in [0, 1]")
     say("requests", f"{BENCH_STEPS} steps B={BENCH_BATCH}x{BENCH_SIZE}^2 + {EVAL_STEPS} steps "
         f"B={EVAL_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} bf16: finite, in [0,1]; launches {launches} "
-        f"(expected noise {n_steps}, dense_block {20 * n_steps})")
+        f"(expected noise {n_steps}, dense_block {4 * LAUNCHES_PER_BLOCK * n_steps})")
     require(launches["noise_degrade"] == n_steps, "one noise launch per step")
-    require(launches["dense_block"] == 20 * n_steps,
-            "4 DenseBlocks x (4 growth + 1 transition) launches per step")
+    require(launches["dense_block"] == 4 * LAUNCHES_PER_BLOCK * n_steps,
+            "4 DenseBlocks x (entry + 4 growth + transition) launches per step")
     return launches, step, bench_clean, eval_clean
 
 
@@ -600,7 +646,11 @@ def train_times(torch, smi, engine):
     return step_ms
 
 
-def phase_times(torch, smi, step, bench_clean, eval_clean, packs):
+def phase_times(torch, smi, step, bench_clean, eval_clean, packs, model):
+    """Serving step ms and img/s; the noise kernel vs plain; each of the four
+    DenseBlocks at B=128·256²: kernels, plain, the module route (the unfused
+    ``models.cdan.DenseBlock`` under a bf16 autocast, cuDNN convs: what the
+    pipeline's experts run) and this design's traffic floor."""
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda import noise
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
         dense_block, dense_block_plain,
@@ -619,22 +669,35 @@ def phase_times(torch, smi, step, bench_clean, eval_clean, packs):
             cuda_ms(lambda: noise.noise_degrade_01(bench_clean, std, 11, out_dtype=torch.bfloat16), 20),
             cuda_ms(lambda: noise.noise_degrade_01_plain(
                 bench_clean, std, 11, out_dtype=torch.bfloat16), 5),
-        )
+        ),
+        "serving_step_ms": step_ms,
     }
     g = torch.Generator(device="cuda").manual_seed(4)
-    db_ms = db_plain_ms = 0.0
+    blocks = _cdan_blocks(model)
+    sums = {"kernel": 0.0, "plain": 0.0, "module": 0.0, "floor": 0.0}
     for name, bsz, c_in, (h, w) in DB_SHAPES[:4]:
         x = torch.rand((bsz, c_in, h, w), device="cuda", generator=g).to(torch.bfloat16)
-        k_ms = cuda_ms(lambda: dense_block(x, packs[name]), 10)
-        p_ms = cuda_ms(lambda: dense_block_plain(x, packs[name]), 5)
-        db_ms += k_ms
-        db_plain_ms += p_ms
-        say("times", f"[{smi}] dense_block {name} B={bsz} c={c_in} {h}x{w} bf16: "
-            f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-    times["dense_block"] = (db_ms, db_plain_ms)
+        module = blocks[name].to("cuda").eval()
+
+        def module_route():
+            with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+                return module(x)
+
+        t = {"kernel": cuda_ms(lambda: dense_block(x, packs[name]), 10),
+             "plain": cuda_ms(lambda: dense_block_plain(x, packs[name]), 5),
+             "module": cuda_ms(module_route, 10),
+             "floor": dense_block_traffic([(bsz, c_in, h, w)]) / HBM_BYTES_PER_S * 1e3}
+        for k in sums:
+            sums[k] += t[k]
+        say("times", f"[{smi}] dense_block {name} B={bsz} c={c_in} {h}x{w} bf16: kernel "
+            f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, module route {t['module']:.3f} ms, "
+            f"traffic floor {t['floor']:.3f} ms")
+    times["dense_block"] = (sums["kernel"], sums["plain"])
+    times["dense_block_module_ms"] = sums["module"]
     say("times", f"[{smi}] noise_degrade B={BENCH_BATCH}x{BENCH_SIZE}^2 bf16 out: kernel "
         f"{times['noise_degrade'][0]:.3f} ms, plain {times['noise_degrade'][1]:.3f} ms; "
-        f"dense_block x4 per step: kernel {db_ms:.3f} ms, plain {db_plain_ms:.3f} ms")
+        f"dense_block x4 per step: kernel {sums['kernel']:.3f} ms, plain {sums['plain']:.3f} ms, "
+        f"module route {sums['module']:.3f} ms, traffic floor {sums['floor']:.3f} ms")
     return times
 
 
@@ -789,7 +852,9 @@ def phase_requests_cm(torch):
     from multi_degradation_image_enhancement_tpu_torch import serving
     from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import conv3x3, conv3x3_pool
-    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        LAUNCHES_PER_BLOCK, dense_block,
+    )
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.noise import noise_degrade_01
 
     default = dict(cdan_fast._CM_CONV_IMPL)
@@ -816,7 +881,7 @@ def phase_requests_cm(torch):
             require(tuple(out.shape) == (BENCH_BATCH, BENCH_SIZE, BENCH_SIZE, 3), "output shape")
             require(bool(torch.isfinite(out).all()) and out.min().item() >= 0.0
                     and out.max().item() <= 1.0, "outputs finite, in [0, 1]")
-        want = {"noise_degrade": BENCH_STEPS, "dense_block": 20 * BENCH_STEPS,
+        want = {"noise_degrade": BENCH_STEPS, "dense_block": 4 * LAUNCHES_PER_BLOCK * BENCH_STEPS,
                 "conv3x3_pool": BENCH_STEPS, "conv3x3": (7 if table == "kernel" else 0) * BENCH_STEPS}
         say("requests_cm", f"{BENCH_STEPS} steps B={BENCH_BATCH}x{BENCH_SIZE}^2 prefer_cm, conv "
             f"table {table}: finite, in [0,1]; launches {n} (expected {want})")
@@ -836,7 +901,9 @@ def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_I
 
     from multi_degradation_image_enhancement_tpu_torch import run
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import conv3x3, conv3x3_pool
-    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        LAUNCHES_PER_BLOCK, dense_block,
+    )
     from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
 
     work = Path("build") / "chip_smoke_test" / name
@@ -899,7 +966,8 @@ def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_I
     require(len(pngs) == images, "one raw PNG per scored image")
     want_pp = images if post_on and cfg["save_outputs"].get("save_postprocessed") else 0
     require(len(pp_pngs) == want_pp, "one post-processed PNG per scored image where configured")
-    require(launches["dense_block"] == 20 * batches, "20 DenseBlock launches per batch")
+    require(launches["dense_block"] == 4 * LAUNCHES_PER_BLOCK * batches,
+            f"{4 * LAUNCHES_PER_BLOCK} DenseBlock launches per batch")
     return {"seconds": seconds, "launches": launches, "engine": engine, "scores": scores,
             "batches": batches}
 
@@ -1006,11 +1074,12 @@ def phase_fused_dense_block(torch, smi, model):
     """#10's entry ``fused_dense_block`` (NHWC, the affine folded in x's
     dtype) vs its plain version (``dense_block_plain`` on the same fold) at
     the four block shapes of the B=16·256x384 forward, f32 and bf16 x: max
-    <= 5e-2, mean <= 5e-3, 5 launches a call.  Then the public entry on those
-    four blocks (bf16) with the counter reset: 20 launches.  Times (bf16,
+    <= 5e-2, mean <= 5e-3, LAUNCHES_PER_BLOCK launches a call.  Then the public entry on those
+    four blocks (bf16) with the counter reset: 4 x LAUNCHES_PER_BLOCK.  Times (bf16,
     the four blocks): the entry, ``fused_dense_block_cm``, plain."""
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
-        dense_block, dense_block_plain, fold_dense_block, fused_dense_block, fused_dense_block_cm,
+        LAUNCHES_PER_BLOCK, dense_block, dense_block_plain, fold_dense_block, fused_dense_block,
+        fused_dense_block_cm,
     )
 
     dev = torch.device("cuda")
@@ -1032,9 +1101,9 @@ def phase_fused_dense_block(torch, smi, model):
             worst = max(worst, err.max().item())
             say("fused_dense_block", f"{name} B={bsz} c={c_in} {h}x{w} {dt}: max "
                 f"{err.max().item():.3e} (limit 5e-2) mean {err.mean().item():.3e} (limit 5e-3); "
-                f"launches {n} (expected 5)")
+                f"launches {n} (expected {LAUNCHES_PER_BLOCK})")
             require(err.max().item() <= 5e-2 and err.mean().item() <= 5e-3, f"#10 {name} {dt}")
-            require(n == 5, "#10: 4 growth + 1 transition launches a call")
+            require(n == LAUNCHES_PER_BLOCK, "#10: entry + 4 growth + transition launches a call")
     xs = {name: torch.rand((bsz, h, w, c), device=dev, generator=g).to(torch.bfloat16)
           for name, bsz, c, (h, w) in shapes}
     torch.cuda.synchronize()
@@ -1044,8 +1113,8 @@ def phase_fused_dense_block(torch, smi, model):
     launches = dense_block.launches
     require(all(bool(torch.isfinite(o).all()) for o in outs), "#10 outputs finite")
     say("fused_dense_block", f"public entry on the four blocks of B={EVAL_BATCH}x{EVAL_HW[0]}x"
-        f"{EVAL_HW[1]} bf16: launches {launches} (expected 20)")
-    require(launches == 20, "#10 public entry: 20 launches for four blocks")
+        f"{EVAL_HW[1]} bf16: launches {launches} (expected {4 * LAUNCHES_PER_BLOCK})")
+    require(launches == 4 * LAUNCHES_PER_BLOCK, "#10 public entry: four blocks' launches")
     ms = {"kernel": 0.0, "cm_entry": 0.0, "plain": 0.0}
     for name, x in xs.items():
         pack = fold_dense_block(blocks[name], torch.bfloat16, dev)
@@ -1170,6 +1239,45 @@ def profile_step(torch, smi, engine, steps: int = 3):
     return total_ms, wall_ms
 
 
+def profile_serving(torch, smi, step, clean, steps: int = 5):
+    """``torch.profiler`` over ``steps`` serving steps at B=128·256² after a
+    warm-up: device time a step, busy share, and the shares of the growth
+    layers, the transition, the entry pass, the bilinear upsample, the
+    convolutions (cuDNN) and the rest (glue)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(6)
+    step(clean, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(clean, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    groups = {"growth": ("growth_wgmma",), "transition": ("transition_wgmma",),
+              "entry": ("nchw_to_nhwc", "nhwc_to_slot"), "upsample": ("upsample",),
+              "convs": ("conv", "xmma", "cudnn", "implicit_gemm", "gemm")}
+    shares = dict.fromkeys([*groups, "glue"], 0.0)
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        name = e.key.lower()
+        kind = next((k for k, keys in groups.items() if any(s in name for s in keys)), "glue")
+        shares[kind] += device_us(e) / 1e3 / steps
+    total = sum(shares.values())
+    require(total > 0, "the profiler saw device time")
+    say("profile", f"[{smi}] serving step B={BENCH_BATCH}x{BENCH_SIZE}^2 bf16 under torch.profiler "
+        f"({steps} steps): {total:.3f} ms of kernels a step, {wall_ms:.3f} ms wall, busy share "
+        f"{total / wall_ms:.3f}; " + ", ".join(f"{k} {v:.3f} ms ({v / total:.1%})"
+                                              for k, v in shares.items()))
+    return shares
+
+
 def bound(flops: float, nbytes: float, peak: str = "bf16"):
     """(least ms, what binds it): the larger of FLOPs over the card's peak
     for the operands' type and bytes (each input read once, each output
@@ -1189,6 +1297,23 @@ def dense_block_work(shapes, io_bytes=2):
         nbytes += 2 * p * c * io_bytes + sum(16 * ci * 9 * 2 + ci * 8 + 64 for ci in cs)
         nbytes += (c + 64) * c * 2 + (c + 64) * 8 + c * 4
     return flops, nbytes
+
+
+def dense_block_traffic(shapes, io_bytes=2, growth=16, layers=4) -> float:
+    """Bytes the DenseBlock kernels must move between HBM and the SMs, each
+    launch reading and writing its operands once: the entry pass reads x and
+    writes slot 0 (c_in padded to 8); growth layer i reads the buffer's
+    first c_in_pad + 16·i channels and writes its 16; the transition reads
+    the buffer and writes the output.  ``shapes`` = [(batch, c_in, h, w)]."""
+    total = 0
+    for bsz, c, h, w in shapes:
+        c_pad = -(-c // 8) * 8
+        c_buf = c_pad + growth * layers
+        per_pixel = c * io_bytes + 2 * c_pad
+        per_pixel += sum(2 * (c_pad + growth * i) + 2 * growth for i in range(layers))
+        per_pixel += 2 * c_buf + c * io_bytes
+        total += bsz * h * w * per_pixel
+    return total
 
 
 def growth_train_work(backward: bool):
@@ -1646,7 +1771,8 @@ def main() -> int:
     live = live_cdan(torch, 0)
     phase_forward(torch, live)
     launches, step, bench_clean, eval_clean = phase_requests(torch)
-    times = phase_times(torch, smi, step, bench_clean, eval_clean, packs)
+    times = phase_times(torch, smi, step, bench_clean, eval_clean, packs, model)
+    profile_serving(torch, smi, step, bench_clean)
     gt_err = phase_growth_train(torch)
     phase_train_step(torch)
     gt_launches, engine = phase_cli_train(torch)
@@ -1693,7 +1819,8 @@ def main() -> int:
         {"name": "dense_block", "route": "cuda", "source": f"{src}/dense_block.cu",
          "replaces": f"{ref}/dense_block_cm.py:452", "launches": launches["dense_block"],
          "max_abs_err": db_err, "ms": times["dense_block"][0],
-         "plain_ms": times["dense_block"][1], "library_ms": None},
+         "plain_ms": times["dense_block"][1], "library_ms": None,
+         "module_route_ms": times["dense_block_module_ms"]},
         {"name": "growth_train_fwd", "route": "cuda", "source": f"{src}/growth_train.cu",
          "replaces": f"{ref}/growth_train.py:86",  # and its tiled variant, :288
          "launches": gt_launches["growth_train_fwd"], "max_abs_err": gt_err["fwd"],

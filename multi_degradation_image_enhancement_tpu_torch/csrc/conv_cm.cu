@@ -32,9 +32,10 @@
 // least).  TMA cannot start a box at an innermost coordinate that is not 16
 // bytes aligned (the launch faults with an illegal instruction), so a tap's
 // one-pixel shift cannot lie along NCHW's pixel rows.  A first pass
-// therefore rounds x to bf16 into an NHWC scratch (channels padded to 8),
-// and a K step (64 input channels of one tap (ky, kx)) loads BH boxes of BW
-// pixels x 64 channels at (c0, w0 + kx - 1, h0 + r + ky - 1, b): 128-byte
+// therefore rounds x to bf16 into an NHWC scratch (channels padded to 8;
+// the pass of nhwc_pass.cuh, shared with dense_block.cu), and a K step (64
+// input channels of one tap (ky, kx)) loads BH boxes of BW pixels x 64
+// channels at (c0, w0 + kx - 1, h0 + r + ky - 1, b): 128-byte
 // pixel rows, K-major, 128-byte swizzle; the shift lies in the pixel
 // dimensions and TMA's out-of-bounds zeros are SAME's padding and the
 // ragged edges, so any H and W are taken.  The weights come K-major from
@@ -63,13 +64,9 @@
 #include <stdint.h>
 
 #include "hopper_wgmma.cuh"
+#include "nhwc_pass.cuh"
 
 namespace {
-
-__device__ __forceinline__ float bf16_operand(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-__device__ __forceinline__ float bf16_operand(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
@@ -98,35 +95,7 @@ struct Cfg {
   static constexpr int kAcc = BN / 2;
   static constexpr int kCh = BN < 64 ? BN : 64;  // output channels of a staged chunk
 };
-// The NCHW -> NHWC pass: a tile of 32 channels x 32 pixels a block.
-constexpr int kTile = 32, kTileRows = 8;
 }  // namespace conv
-
-// x [B, C, H*W] (bf16 or f32) -> y [B, H*W, Ct] bf16, channels C..Ct-1 zero:
-// the kernel's operand, K-major, rounded to bf16 here (the contract's first
-// rounding point).  grid = (ceil(HW/32), ceil(Ct/32), B); block = (32, 8).
-template <typename T>
-__global__ void __launch_bounds__(conv::kTile * conv::kTileRows)
-nchw_to_nhwc_kernel(const T* __restrict__ x, int C, int HW, int Ct, __nv_bfloat16* __restrict__ y) {
-  using namespace conv;
-  __shared__ __nv_bfloat16 tile[kTile][kTile + 2];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int p0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
-  const long long img = blockIdx.z;
-#pragma unroll
-  for (int j = 0; j < kTile; j += kTileRows) {
-    const int c = c0 + ty + j, p = p0 + tx;
-    float v = 0.0f;
-    if (c < C && p < HW) v = bf16_operand(x[(img * C + c) * HW + p]);
-    tile[ty + j][tx] = __float2bfloat16(v);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kTile; j += kTileRows) {
-    const int p = p0 + ty + j, c = c0 + tx;
-    if (p < HW && c < Ct) y[(img * HW + p) * Ct + c] = tile[tx][ty + j];
-  }
-}
 
 // Persistent: a thread block per SM walks tiles (image, pixel-row band,
 // pixel-column band, N tile), N fastest.  K steps: input-channel chunk
@@ -503,17 +472,7 @@ int mdie_conv3x3(const void* x, int x_f32, int batch, int c_in, int h, int w, vo
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* y = static_cast<__nv_bfloat16*>(xt);
-  const int hw = h * w;
-  const dim3 tgrid((hw + conv::kTile - 1) / conv::kTile, (c_t + conv::kTile - 1) / conv::kTile,
-                   batch);
-  const dim3 tblock(conv::kTile, conv::kTileRows);
-  if (x_f32)
-    nchw_to_nhwc_kernel<float><<<tgrid, tblock, 0, s>>>(static_cast<const float*>(x), c_in, hw,
-                                                        c_t, y);
-  else
-    nchw_to_nhwc_kernel<__nv_bfloat16><<<tgrid, tblock, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), c_in, hw, c_t, y);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_nchw_to_nhwc(x, x_f32, batch, c_in, h * w, c_t, c_t, y, s);
   if (err) return static_cast<int>(err);
   return static_cast<int>(dispatch_conv3x3(y, batch, c_t, h, w, tile_width_log2(w), wp,
                                            c_in_pad, c_out_pad, static_cast<const float*>(bias),

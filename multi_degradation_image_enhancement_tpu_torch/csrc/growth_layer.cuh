@@ -1,5 +1,6 @@
-// The growth-layer forward shared by the inference DenseBlock (dense_block.cu)
-// and the trainable growth layer (growth_train.cu):
+// The growth-layer forward of the trainable growth layer (growth_train.cu,
+// its only user; the inference DenseBlock has its own tensor-core kernels in
+// dense_block.cu):
 //
 //   g = conv3x3_{ci -> G}(bf16(relu(a*f + b))) + bias       (SAME padding)
 //
@@ -18,11 +19,10 @@
 // weight once per 32 FMAs (broadcast float4 shared loads).  Feature bytes are
 // read ~once per layer from L2/HBM.
 //
-// Templated on the feature type (TIn: bf16 in the inference concat buffer,
-// f32 in training) and the output type, and given a source and a
-// destination NCHW buffer with their channel counts, so one kernel reads a
-// concat buffer and writes into it (inference) or reads x and writes a
-// separate g (training).  Source and destination may alias (disjoint channels).
+// Templated on the feature type and the output type (training instantiates
+// f32 for both), and given a source and a destination NCHW buffer with their
+// channel counts (training reads x and writes a separate g).  Source and
+// destination may alias (disjoint channels).
 
 #pragma once
 

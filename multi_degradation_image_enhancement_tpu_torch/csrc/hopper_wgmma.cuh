@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (probe_matmul.cu, conv_cm.cu): mbarriers, TMA loads and stores, wgmma
+// (probe_matmul.cu, conv_cm.cu, probe_transpose.cu, dense_block.cu): mbarriers, TMA loads and stores, wgmma
 // shared-memory descriptors, the bf16 m64nNk16 wgmma instructions, and the
 // host-side encoding of TMA tensor maps.
 //
@@ -13,6 +13,12 @@
 //     K index; SBO = the stride of 8-row (8 K) groups, LBO = the stride from
 //     one 64-wide MN atom to the next.  A 16-element K step advances the
 //     start by 16 rows.
+//   K-major, no swizzle (interleave): core matrices of 8 rows x 16 bytes
+//     (8 bf16 along K), each 128 contiguous bytes; LBO = the stride from one
+//     core matrix to the next along K, SBO = the stride of 8-row groups
+//     along M or N.  A 16-element K step advances the start by 2 LBO.  The
+//     start only needs 16-byte alignment, so a window shifted by whole
+//     16-byte rows (dense_block.cu's tap shifts) is a legal operand.
 // TMA writes exactly these layouts when the box's inner extent is the
 // swizzle span (128 bytes) and the map names the same swizzle.  A TMA box
 // must start 16-byte aligned in the innermost dimension: an unaligned start
@@ -150,6 +156,14 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo_bytes,
          (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// Descriptor of a K-major tile without swizzle (layout type 0).
+__device__ __forceinline__ uint64_t smem_desc_interleave(const void* p, uint32_t lbo_bytes,
+                                                         uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -177,6 +191,18 @@ __device__ __forceinline__ void wgmma_m64n8k16(float* d, uint64_t desc_a, uint64
       "%0, %1, %2, %3"
       "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n16k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
@@ -257,8 +283,9 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint
 // an MN-major operand (bf16 allows either major for both).
 template <int N, int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t desc_a, uint64_t desc_b) {
-  static_assert(N == 8 || N == 64 || N == 128 || N == 256, "wgmma width");
+  static_assert(N == 8 || N == 16 || N == 64 || N == 128 || N == 256, "wgmma width");
   if constexpr (N == 8) wgmma_m64n8k16<kTransA, kTransB>(d, desc_a, desc_b);
+  if constexpr (N == 16) wgmma_m64n16k16<kTransA, kTransB>(d, desc_a, desc_b);
   if constexpr (N == 64) wgmma_m64n64k16<kTransA, kTransB>(d, desc_a, desc_b);
   if constexpr (N == 128) wgmma_m64n128k16<kTransA, kTransB>(d, desc_a, desc_b);
   if constexpr (N == 256) wgmma_m64n256k16<kTransA, kTransB>(d, desc_a, desc_b);

@@ -6,20 +6,29 @@ dense_block_cm.py`` (``_kernel2`` via ``_run_cm2``, and the row-tiled
 ``_kernel`` via ``_run_cm``, whose NHWC entry is :func:`fused_dense_block_cm`)
 and of ``ops/pallas/dense_block.py`` (``fold_bn``, and the row-major
 ``_kernel`` whose entry is :func:`fused_dense_block`).  NCHW in and out:
-``[B, c_in, H, W]`` → ``[B, c_in, H, W]`` in x's dtype, with no channel
-padding.
+``[B, c_in, H, W]`` → ``[B, c_out, H, W]`` in x's dtype, with no channel
+padding (the NHWC entries: NHWC in and out).
 
 :func:`dense_block` takes the plain version only for a tensor on the CPU.  For
-a CUDA tensor it launches ``num_layers`` growth kernels and one transition
-kernel, or raises; ``dense_block.launches`` counts every launch.  It is
-inference only: the kernels have no backward, so it raises when grad is
-enabled and x or a pack tensor requires grad, on either device (the
-trainable growth layer is ``ops.cuda.growth_train``).
+a CUDA tensor it launches an entry pass into an NHWC bf16 concat buffer, one
+growth kernel per layer and one transition kernel, all products on the tensor
+cores (``wgmma``), or raises; ``dense_block.launches`` counts every launch,
+:data:`LAUNCHES_PER_BLOCK` for each of CDAN's blocks.  It is inference only:
+the kernels have no backward, so it raises when grad is enabled and x or a
+pack tensor requires grad, on either device (the trainable growth layer is
+``ops.cuda.growth_train``).
+
+The kernels read the pack's padded operands (:class:`DenseBlockPack`): the
+NHWC bf16 concat buffer ``[B, H, W, c_buf]`` holds x in channels
+``[0, c_in_pad)`` and layer i's output in ``[c_in_pad + g_pad·i, + g_pad)``,
+so every slot starts on 16 bytes; module channel ``c`` sits at buffer
+channel ``chan_index[c]``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
+import functools
+from dataclasses import dataclass, field
 from typing import List
 
 import torch
@@ -28,6 +37,18 @@ import torch.nn.functional as F
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
 
 BN_EPS = 1e-5
+C_ALIGN = 8  # c_in is padded to it: 16 bytes, the kernels' vector load
+G_ALIGN = 16  # growth is padded to it: the growth kernel's wgmma N
+K_CHUNK = 32  # channels of the kernels' K chunk: the K operands are padded to it
+N_WIDE = 64  # the transition's N granule above 8 outputs
+NUM_LAYERS = 4  # growth layers of each of CDAN's DenseBlocks
+# Launches of one DenseBlock call on the card: the entry pass, one growth
+# kernel a layer, the transition.
+LAUNCHES_PER_BLOCK = 1 + NUM_LAYERS + 1
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def fold_bn(scale, bias, mean, var, eps: float = BN_EPS):
@@ -38,10 +59,20 @@ def fold_bn(scale, bias, mean, var, eps: float = BN_EPS):
 
 @dataclass
 class DenseBlockPack:
-    """A DenseBlock's folded parameters (f32) plus the kernels' bf16 weights.
+    """A DenseBlock's folded parameters (f32), the plain version's operands,
+    and the kernels' padded operands, derived from them.
 
     Layer ``i`` reads ``c_in + growth·i`` channels; ``w[i]`` is
     ``[growth, c_i, 3, 3]``; the transition ``wt`` is ``[c_out, c_total]``.
+
+    The kernels' operands, in buffer channels (``chan_index``), zeros on
+    every pad: ``ak[i]``, ``bk[i]`` f32 ``[k_pad_i]``; ``wk[i]`` bf16
+    ``[9, g_pad, k_pad_i]`` K-major (tap ``3·ky + kx``, output, channel), with
+    ``k_pad_i`` = ``c_in_pad + g_pad·i`` rounded up to :data:`K_CHUNK`;
+    ``biask[i]`` f32 ``[g_pad]``; ``atk``, ``btk`` f32 ``[kt_pad]`` and
+    ``wtk`` bf16 ``[n_pad, kt_pad]`` with ``kt_pad`` = ``c_buf`` rounded up
+    to :data:`K_CHUNK` and ``n_pad`` = c_out padded to 8 (up to 8) or to
+    :data:`N_WIDE`; ``biastk`` f32 ``[n_pad]``.
     """
 
     c_in: int
@@ -54,12 +85,43 @@ class DenseBlockPack:
     bt: torch.Tensor
     wt: torch.Tensor
     biast: torch.Tensor
-    w_bf16: List[torch.Tensor] = field(init=False)
-    wt_bf16: torch.Tensor = field(init=False)
+    chan_index: torch.Tensor = field(init=False)
+    ak: List[torch.Tensor] = field(init=False)
+    bk: List[torch.Tensor] = field(init=False)
+    wk: List[torch.Tensor] = field(init=False)
+    biask: List[torch.Tensor] = field(init=False)
+    atk: torch.Tensor = field(init=False)
+    btk: torch.Tensor = field(init=False)
+    wtk: torch.Tensor = field(init=False)
+    biastk: torch.Tensor = field(init=False)
 
     def __post_init__(self):
-        self.w_bf16 = [w.to(torch.bfloat16).contiguous() for w in self.w]
-        self.wt_bf16 = self.wt.to(torch.bfloat16).contiguous()
+        # A handful of launches for the whole pack: the NHWC entries fold a
+        # module on every call, so the host cost of this shows in their time.
+        lay = _layout(self.c_in, self.growth, self.num_layers, self.c_out, self.wt.device)
+        self.chan_index = lay["chan"]
+        n = self.num_layers
+        ab = self.wt.new_zeros((2 * n + 2, _round_up(self.c_buf, K_CHUNK)))
+        ab.index_put_(lay["ab"], torch.cat([*(t for ab_i in zip(self.a, self.b) for t in ab_i),
+                                           self.at, self.bt]))
+        biases = self.wt.new_zeros((n + 1, max(self.g_pad, self.n_pad)))
+        biases.index_put_(lay["bias"], torch.cat([*self.bias, self.biast]))
+        self.ak, self.bk, self.wk, self.biask = [], [], [], []
+        for i in range(n):
+            ci = self.c_in + self.growth * i
+            k_pad = _round_up(self.c_in_pad + self.g_pad * i, K_CHUNK)
+            self.ak.append(ab[2 * i, :k_pad])
+            self.bk.append(ab[2 * i + 1, :k_pad])
+            wk = self.wt.new_zeros((3, 3, self.g_pad, k_pad), dtype=torch.bfloat16)
+            w = self.w[i].permute(2, 3, 0, 1).to(torch.bfloat16)
+            wk[:, :, :self.growth, self.chan_index[:ci]] = w
+            self.wk.append(wk.view(9, self.g_pad, k_pad))
+            self.biask.append(biases[i, :self.g_pad])
+        self.atk, self.btk = ab[2 * n], ab[2 * n + 1]
+        wtk = self.wt.new_zeros((self.n_pad, ab.shape[1]), dtype=torch.bfloat16)
+        wtk[:self.c_out, self.chan_index] = self.wt.to(torch.bfloat16)
+        self.wtk = wtk
+        self.biastk = biases[n, :self.n_pad]
 
     @property
     def num_layers(self) -> int:
@@ -73,31 +135,79 @@ class DenseBlockPack:
     def c_out(self) -> int:
         return self.wt.shape[0]
 
+    @property
+    def c_in_pad(self) -> int:
+        return _round_up(self.c_in, C_ALIGN)
+
+    @property
+    def g_pad(self) -> int:
+        return _round_up(self.growth, G_ALIGN)
+
+    @property
+    def c_buf(self) -> int:
+        """Channels of the kernels' NHWC concat buffer."""
+        return self.c_in_pad + self.g_pad * self.num_layers
+
+    @property
+    def n_pad(self) -> int:
+        return 8 if self.c_out <= 8 else _round_up(self.c_out, N_WIDE)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(c_in: int, growth: int, layers: int, c_out: int, device) -> dict:
+    """Index tensors of the pack's padded layout, made once per shape and
+    device: ``chan`` (module channel → buffer channel) and the (row, column)
+    positions of the stacked affines ``[a_0, b_0, …, a_t, b_t]`` and biases."""
+    c_in_pad, g_pad = _round_up(c_in, C_ALIGN), _round_up(growth, G_ALIGN)
+    chan = [c if c < c_in else c_in_pad + (c - c_in) // growth * g_pad + (c - c_in) % growth
+            for c in range(c_in + growth * layers)]
+    rows, cols = [], []
+    for i in range(layers):
+        ci = c_in + growth * i
+        rows += [2 * i] * ci + [2 * i + 1] * ci
+        cols += chan[:ci] * 2
+    rows += [2 * layers] * len(chan) + [2 * layers + 1] * len(chan)
+    cols += chan * 2
+    b_rows = [i for i in range(layers) for _ in range(growth)] + [layers] * c_out
+    b_cols = list(range(growth)) * layers + list(range(c_out))
+
+    def t(v):
+        return torch.tensor(v, dtype=torch.long, device=device)
+
+    return {"chan": t(chan), "ab": (t(rows), t(cols)), "bias": (t(b_rows), t(b_cols))}
+
 
 @torch.no_grad()
-def pack_dense_block(block, device=None) -> DenseBlockPack:
-    """Fold a ``models.cdan.DenseBlock``'s BatchNorms (eval statistics) and
-    collect its weights for the kernels."""
+def _folded(block, device, dtype=None) -> dict:
+    """A ``models.cdan.DenseBlock``'s BatchNorms folded (eval statistics) and
+    its weights, f32 on ``device``; with ``dtype`` the folded affines are
+    rounded to it."""
 
     def f32(t):
         return t.detach().to(device=device, dtype=torch.float32).contiguous()
 
-    a, b, w, bias = [], [], [], []
+    def affine(bn):
+        a, b = (f32(t) for t in fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps))
+        return (a, b) if dtype is None else (a.to(dtype).float(), b.to(dtype).float())
+
+    fields = {"c_in": block.in_channels, "growth": block.growth_rate, "a": [], "b": [], "w": [],
+              "bias": []}
     for layer in block.layers:
-        bn, conv = layer[0], layer[2]
-        ai, bi = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
-        a.append(f32(ai))
-        b.append(f32(bi))
-        w.append(f32(conv.weight))
-        bias.append(f32(conv.bias))
-    bn, conv = block.transition_layer[0], block.transition_layer[2]
-    at, bt = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
-    return DenseBlockPack(
-        c_in=block.in_channels,
-        growth=block.growth_rate,
-        a=a, b=b, w=w, bias=bias,
-        at=f32(at), bt=f32(bt), wt=f32(conv.weight[:, :, 0, 0]), biast=f32(conv.bias),
-    )
+        a, b = affine(layer[0])
+        fields["a"].append(a)
+        fields["b"].append(b)
+        fields["w"].append(f32(layer[2].weight))
+        fields["bias"].append(f32(layer[2].bias))
+    conv = block.transition_layer[2]
+    fields["at"], fields["bt"] = affine(block.transition_layer[0])
+    fields.update(wt=f32(conv.weight[:, :, 0, 0]), biast=f32(conv.bias))
+    return fields
+
+
+def pack_dense_block(block, device=None) -> DenseBlockPack:
+    """Fold a ``models.cdan.DenseBlock``'s BatchNorms (eval statistics) and
+    collect its weights for the kernels."""
+    return DenseBlockPack(**_folded(block, device))
 
 
 def require_no_grad(what: str, tensors) -> None:
@@ -136,57 +246,73 @@ def dense_block_plain(x: torch.Tensor, pack: DenseBlockPack) -> torch.Tensor:
     return out.to(dt)
 
 
-def dense_block(x: torch.Tensor, pack: DenseBlockPack) -> torch.Tensor:
-    """Inference DenseBlock, NCHW ``[B, c_in, H, W]`` → ``[B, c_out, H, W]``.
-
-    On a CUDA tensor (f32 or bf16): one growth-layer launch per layer into a
-    bf16 concat buffer, then the transition launch.  On the CPU: the plain
-    version.  Raises when grad is enabled and x or the pack requires grad.
-    """
-    require_no_grad("dense_block", [x, *_pack_tensors(pack)])
-    if x.device.type == "cpu":
-        return dense_block_plain(x, pack)
+def _dense_block_cuda(x: torch.Tensor, pack: DenseBlockPack, nhwc: bool) -> torch.Tensor:
+    """The kernels on a CUDA x, NCHW ``[B, c_in, H, W]`` (NHWC ``[B, H, W,
+    c_in]`` with ``nhwc``) → the same layout with c_out channels."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dense_block: x must be float32 or bfloat16, got {x.dtype}")
-    bsz, c_in, h, w = x.shape
+    if x.dim() != 4:
+        raise ValueError(f"dense_block: x must be 4-D, got {tuple(x.shape)}")
+    bsz, c_in, h, w = (x.shape[0], x.shape[3], x.shape[1], x.shape[2]) if nhwc else x.shape
     if c_in != pack.c_in:
         raise ValueError(f"dense_block: x has {c_in} channels, the pack expects {pack.c_in}")
     _build.require(x, "x", x.dtype)
-    n_out_groups = -(-pack.growth // 16)  # the growth kernel's gridDim.z is batch x groups
-    _build.require_batch(bsz * n_out_groups, "dense_block")
+    _build.require_batch(bsz, "dense_block")
+    if min(h, w) <= 0:
+        raise ValueError(f"dense_block: empty image {h}x{w}")
+    c_buf, g_pad = pack.c_buf, pack.g_pad
     for i in range(pack.num_layers):
-        ci = c_in + pack.growth * i
-        _build.require(pack.a[i], f"a{i}", torch.float32, (ci,))
-        _build.require(pack.b[i], f"b{i}", torch.float32, (ci,))
-        _build.require(pack.w_bf16[i], f"w{i}", torch.bfloat16, (pack.growth, ci, 3, 3))
-        _build.require(pack.bias[i], f"bias{i}", torch.float32, (pack.growth,))
-    c_tot, c_out = pack.c_total, pack.c_out
-    _build.require(pack.at, "at", torch.float32, (c_tot,))
-    _build.require(pack.bt, "bt", torch.float32, (c_tot,))
-    _build.require(pack.wt_bf16, "wt", torch.bfloat16, (c_out, c_tot))
-    _build.require(pack.biast, "biast", torch.float32, (c_out,))
+        k_pad = _round_up(pack.c_in_pad + g_pad * i, K_CHUNK)
+        _build.require(pack.ak[i], f"ak{i}", torch.float32, (k_pad,))
+        _build.require(pack.bk[i], f"bk{i}", torch.float32, (k_pad,))
+        _build.require(pack.wk[i], f"wk{i}", torch.bfloat16, (9, g_pad, k_pad))
+        _build.require(pack.biask[i], f"biask{i}", torch.float32, (g_pad,))
+    kt_pad = _round_up(c_buf, K_CHUNK)
+    _build.require(pack.atk, "atk", torch.float32, (kt_pad,))
+    _build.require(pack.btk, "btk", torch.float32, (kt_pad,))
+    _build.require(pack.wtk, "wtk", torch.bfloat16, (pack.n_pad, kt_pad))
+    _build.require(pack.biastk, "biastk", torch.float32, (pack.n_pad,))
 
     lib = _build.load()
     stream = _build.stream_of(x)
-    feats = torch.empty((bsz, c_tot, h, w), dtype=torch.bfloat16, device=x.device)
-    feats[:, :c_in].copy_(x)
+    feats = torch.empty((bsz, h, w, c_buf), dtype=torch.bfloat16, device=x.device)
+    err = lib.mdie_db_entry(x.data_ptr(), int(x.dtype == torch.float32), int(nhwc), bsz, c_in, h,
+                            w, pack.c_in_pad, feats.data_ptr(), c_buf, stream)
+    _build.check(err, "dense_block entry pass")
+    dense_block.launches += 1
     for i in range(pack.num_layers):
-        err = lib.mdie_growth_layer(
-            feats.data_ptr(), bsz, c_tot, h, w, c_in + pack.growth * i,
-            pack.a[i].data_ptr(), pack.b[i].data_ptr(), pack.w_bf16[i].data_ptr(),
-            pack.bias[i].data_ptr(), pack.growth, stream,
+        ci = pack.c_in_pad + g_pad * i
+        err = lib.mdie_db_growth(
+            feats.data_ptr(), bsz, h, w, c_buf, ci, _round_up(ci, K_CHUNK),
+            pack.ak[i].data_ptr(), pack.bk[i].data_ptr(), pack.wk[i].data_ptr(),
+            pack.biask[i].data_ptr(), g_pad, stream,
         )
         _build.check(err, f"dense_block growth layer {i}")
         dense_block.launches += 1
-    out = torch.empty((bsz, c_out, h, w), dtype=x.dtype, device=x.device)
-    err = lib.mdie_transition(
-        feats.data_ptr(), bsz, c_tot, h * w, pack.at.data_ptr(), pack.bt.data_ptr(),
-        pack.wt_bf16.data_ptr(), pack.biast.data_ptr(), c_out, out.data_ptr(),
-        int(x.dtype == torch.bfloat16), stream,
+    shape = (bsz, h, w, pack.c_out) if nhwc else (bsz, pack.c_out, h, w)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    err = lib.mdie_db_transition(
+        feats.data_ptr(), bsz, h, w, c_buf, kt_pad, pack.atk.data_ptr(), pack.btk.data_ptr(),
+        pack.wtk.data_ptr(), pack.biastk.data_ptr(), pack.n_pad, pack.c_out, out.data_ptr(),
+        int(x.dtype == torch.bfloat16), int(nhwc), stream,
     )
     _build.check(err, "dense_block transition")
     dense_block.launches += 1
     return out
+
+
+def dense_block(x: torch.Tensor, pack: DenseBlockPack) -> torch.Tensor:
+    """Inference DenseBlock, NCHW ``[B, c_in, H, W]`` → ``[B, c_out, H, W]``.
+
+    On a CUDA tensor (f32 or bf16): the entry pass rounds x into an NHWC bf16
+    concat buffer, one growth launch per layer writes its slot, then the
+    transition launch.  On the CPU: the plain version.  Raises when grad is
+    enabled and x or the pack requires grad.
+    """
+    require_no_grad("dense_block", [x, *_pack_tensors(pack)])
+    if x.device.type == "cpu":
+        return dense_block_plain(x, pack)
+    return _dense_block_cuda(x, pack, nhwc=False)
 
 
 dense_block.launches = 0
@@ -200,26 +326,26 @@ def fused_dense_block_cm(x_nhwc: torch.Tensor, block) -> torch.Tensor:
     entry of the row-tiled TPU kernel (``_kernel``, ``_run_cm``).  Its row
     tiles with 5-row halos exist only because VMEM is 128 MiB; the growth and
     transition kernels here cover whole images at any size, so this is an
-    entry point of :func:`dense_block` (launches counted there), not a second
-    kernel.  ``_kernel`` rounds where ``_kernel2`` does, so the plain version
-    is the same.
+    entry point of :func:`dense_block`'s kernels (launches counted there),
+    not a second kernel: its entry pass copies the NHWC x into the concat
+    buffer as it is and the transition writes NHWC.  ``_kernel`` rounds where
+    ``_kernel2`` does, so the plain version is the same.
     """
-    pack = pack_dense_block(block, x_nhwc.device)
-    out = dense_block(x_nhwc.permute(0, 3, 1, 2).contiguous(), pack)
-    return out.permute(0, 2, 3, 1)
+    return _nhwc_entry(x_nhwc, pack_dense_block(block, x_nhwc.device), "fused_dense_block_cm")
+
+
+def _nhwc_entry(x_nhwc: torch.Tensor, pack: DenseBlockPack, what: str) -> torch.Tensor:
+    require_no_grad(what, [x_nhwc, *_pack_tensors(pack)])
+    if x_nhwc.device.type == "cpu":
+        return dense_block_plain(x_nhwc.permute(0, 3, 1, 2), pack).permute(0, 2, 3, 1)
+    return _dense_block_cuda(x_nhwc, pack, nhwc=True)
 
 
 def fold_dense_block(block, dtype: torch.dtype, device=None) -> DenseBlockPack:
     """:func:`pack_dense_block` with the folded affines (``a``, ``b``, ``at``,
     ``bt``) rounded to ``dtype``, as ``dense_block.py:289`` folds them in
     x's dtype; the conv biases stay f32 there too."""
-    pack = pack_dense_block(block, device)
-
-    def rnd(t):
-        return t.to(dtype).float()
-
-    return replace(pack, a=[rnd(t) for t in pack.a], b=[rnd(t) for t in pack.b],
-                   at=rnd(pack.at), bt=rnd(pack.bt))
+    return DenseBlockPack(**_folded(block, device, dtype))
 
 
 def fused_dense_block(x_nhwc: torch.Tensor, block) -> torch.Tensor:
@@ -234,7 +360,8 @@ def fused_dense_block(x_nhwc: torch.Tensor, block) -> torch.Tensor:
     ``g + bias`` rounded to bf16 (``:132``), SAME padding of the activated
     value, the folded affine and the output in x's dtype.  The growth and
     transition kernels of :func:`dense_block` do exactly that, so this is an
-    entry point (launches counted there, 5 a call), not a second kernel.
+    entry point (launches counted there, :data:`LAUNCHES_PER_BLOCK` a call,
+    NHWC in and out with no permute), not a second kernel.
     What the TPU design adds answers VMEM and the matrix unit's lane width
     and has no counterpart here: the 4-row halos (``HALO``), the tile chooser
     (``_choose_tile``), the 128-lane channel padding (``_round128``,
@@ -244,6 +371,5 @@ def fused_dense_block(x_nhwc: torch.Tensor, block) -> torch.Tensor:
     same fold; it keeps f32 features for f32 x, so it sits a bf16 rounding
     class away from the kernel and from JAX there.
     """
-    pack = fold_dense_block(block, x_nhwc.dtype, x_nhwc.device)
-    out = dense_block(x_nhwc.permute(0, 3, 1, 2).contiguous(), pack)
-    return out.permute(0, 2, 3, 1)
+    return _nhwc_entry(x_nhwc, fold_dense_block(block, x_nhwc.dtype, x_nhwc.device),
+                       "fused_dense_block")

@@ -184,8 +184,8 @@ def test_c_entry_points_exist_in_sources():
     """Every function the loader declares is defined ``extern "C"`` in csrc/."""
     src = "\n".join(p.read_text() for p in sorted(_build.CSRC_DIR.glob("*.cu")))
     declared = re.findall(r'"(mdie_\w+)"', Path(_build.__file__).read_text())
-    assert {"mdie_noise_degrade", "mdie_philox_bits", "mdie_growth_layer",
-            "mdie_transition", "mdie_growth_fwd", "mdie_growth_bwd",
+    assert {"mdie_noise_degrade", "mdie_philox_bits", "mdie_db_entry",
+            "mdie_db_growth", "mdie_db_transition", "mdie_growth_fwd", "mdie_growth_bwd",
             "mdie_growth_bwd_scratch", "mdie_conv3x3", "mdie_conv3x3_pool", "mdie_probe_matmul",
             "mdie_probe_transpose", "mdie_probe_rhsT", "mdie_probe_lhsT"} <= set(declared)
     for name in declared + ["mdie_error_string"]:
