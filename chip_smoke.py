@@ -24,14 +24,16 @@ line per phase, and exits non-zero at the first failure:
    steps: busy share and the shares of the DenseBlock's kernels, the
    upsample, the convolutions and the glue;
 8. growth-train kernels (forward and backward) vs their plain version at the
-   16 layer shapes of a B=16·256×384 train step, f32 I/O;
+   16 layer shapes of a B=16·256×384 train step and at B=1 33×47 with c = 19
+   and 72 (ragged tiles), f32 I/O, the backward repeated bit for bit;
 9. a whole fp32 train step at 2×256×384, growth kernels vs plain: loss,
    running statistics, every gradient leaf;
 10. training through the CLI (``run.main`` on noise_synthetic.json cut to one
     epoch of 64 images, bf16, fused DenseBlocks, BN recalibration), with the
     growth launch counters reset before it and read after;
 11. times: ms per bf16 train step and img/s; growth forward and backward per
-    step, kernel vs plain;
+    step, kernel vs its bound, plain and the module route (the unfused BN ->
+    ReLU -> conv layer under a bf16 autocast, cuDNN);
 12. conv kernels vs their plain versions, TF32 off: conv+pool (#9) at conv1
     of B=128·256² and B=16·256×384, conv (#8) at the seven CM conv shapes of
     B=128·256² and of B=16·256×384, at c_in 72 / c_out 3, at 32×34 and with
@@ -65,9 +67,11 @@ line per phase, and exits non-zero at the first failure:
     after;
 21. times: jpeg_synthetic's bf16 train step with and without its perceptual
     terms (VGG19 + LPIPS), beside noise's (TF32 off); then ``torch.profiler``
-    over three of its steps: device time, busy share, the ten costliest
-    kernels; both with TF32 at PyTorch's defaults, as the CLI trains;
+    over three steps of noise_synthetic and of jpeg_synthetic: device time,
+    busy share, the growth-train kernels' time and share, the ten costliest
+    kernels; all with TF32 at PyTorch's defaults, as the CLI trains;
 22. per kernel, the least time the card could take for the work timed
+    (beside its time, plain version and, for #2 and #4–#7, the module route)
     (``bound_ms``: FLOPs over 989 TFLOP/s bf16, 1979 TOP/s int8, or 67
     TFLOP/s f32 for elementwise work, against bytes over 3.35 TB/s, the
     larger) and, where one PyTorch call computes the same function, that
@@ -127,6 +131,9 @@ HBM_BYTES_PER_S = 3.35e12
 # layer i of a block reads c_in + 16·i channels.
 GT_BLOCKS = [("dense1", 64, (128, 192)), ("dense2", 128, (64, 96)),
              ("dense3", 256, (32, 48)), ("final_dense", 3, (256, 384))]
+# (batch, c, (H, W)) of phase 8's ragged growth layers: tiles cut at the edges,
+# c within one backward chunk (19) and past it (72)
+GT_RAGGED = [(1, 19, (33, 47)), (1, 72, (33, 47))]
 BENCH_STEPS, EVAL_STEPS = 5, 3
 TEST_IMAGES = 64  # the -p test phases score 64 of the test block's 128 images
 PHOTO_HW, PHOTO_IMAGES = (480, 640), 32  # a size where the JAX package takes _run_cm (#3)
@@ -440,55 +447,66 @@ def _growth_run(torch, fn, x, a, b, w, bias, r):
 
 def phase_growth_train(torch):
     """Growth-train kernels vs the plain version at the 16 layer shapes of the
-    train step (B=16), f32 I/O, TF32 off: forward max <= 5e-2, mean <= 5e-3
-    (the DenseBlock contract); dx, da, db, dw each <= 2e-2 * max(scale, 1)
-    (tests/test_growth_train.py:56); the backward is bit-for-bit repeatable."""
+    train step (B=16) and the ragged ``GT_RAGGED`` shapes, f32 I/O, TF32 off:
+    forward max <= 5e-2, mean <= 5e-3 (the DenseBlock contract); dx, da, db,
+    dw each <= 2e-2 * max(scale, 1) (tests/test_growth_train.py:56); the
+    backward is bit-for-bit repeatable."""
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
         growth_layer, growth_layer_plain,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = {"fwd": 0.0, "bwd": 0.0}
-    for name, c_in, (h, w) in GT_BLOCKS:
-        for i in range(4):
-            c = c_in + 16 * i
-            inp = _growth_inputs(torch, TRAIN_BATCH, c, h, w, gen)
-            g, grads = _growth_run(torch, growth_layer, *inp)
-            g_ref, ref = _growth_run(torch, growth_layer_plain, *inp)
-            torch.cuda.synchronize()
-            err = (g - g_ref).abs()
-            worst["fwd"] = max(worst["fwd"], err.max().item())
-            rel = {}
-            for gname, got, want in zip(("dx", "da", "db", "dw"), grads, ref):
-                scale = want.abs().max().item()
-                rel[gname] = (got - want).abs().max().item() / max(scale, 1.0)
-                worst["bwd"] = max(worst["bwd"], (got - want).abs().max().item())
-            say("growth_train", f"{name} c={c} B={TRAIN_BATCH} {h}x{w}: fwd max "
-                f"{err.max().item():.3e} mean {err.mean().item():.3e}; bwd err/max(scale,1) "
-                + " ".join(f"{k} {v:.3e}" for k, v in rel.items()) + " (limit 2e-2)")
-            require(err.max().item() <= 5e-2 and err.mean().item() <= 5e-3,
-                    f"growth forward {name} c={c}")
-            require(all(v <= 2e-2 for v in rel.values()), f"growth backward {name} c={c}")
-            if i == 3:
-                _, again = _growth_run(torch, growth_layer, *inp)
-                require(all(torch.equal(p, q) for p, q in zip(grads, again)),
-                        f"growth backward {name} c={c} is repeatable bit for bit")
+    shapes = [(name, TRAIN_BATCH, c_in + 16 * i, hw, i == 3)
+              for name, c_in, hw in GT_BLOCKS for i in range(4)]
+    shapes += [("ragged", bsz, c, hw, True) for bsz, c, hw in GT_RAGGED]
+    for name, bsz, c, (h, w), repeat in shapes:
+        inp = _growth_inputs(torch, bsz, c, h, w, gen)
+        g, grads = _growth_run(torch, growth_layer, *inp)
+        g_ref, ref = _growth_run(torch, growth_layer_plain, *inp)
+        torch.cuda.synchronize()
+        err = (g - g_ref).abs()
+        worst["fwd"] = max(worst["fwd"], err.max().item())
+        rel = {}
+        for gname, got, want in zip(("dx", "da", "db", "dw"), grads, ref):
+            scale = want.abs().max().item()
+            rel[gname] = (got - want).abs().max().item() / max(scale, 1.0)
+            worst["bwd"] = max(worst["bwd"], (got - want).abs().max().item())
+        say("growth_train", f"{name} c={c} B={bsz} {h}x{w}: fwd max "
+            f"{err.max().item():.3e} mean {err.mean().item():.3e}; bwd err/max(scale,1) "
+            + " ".join(f"{k} {v:.3e}" for k, v in rel.items()) + " (limit 2e-2)")
+        require(err.max().item() <= 5e-2 and err.mean().item() <= 5e-3,
+                f"growth forward {name} c={c}")
+        require(all(v <= 2e-2 for v in rel.values()), f"growth backward {name} c={c}")
+        if repeat:
+            _, again = _growth_run(torch, growth_layer, *inp)
+            require(all(torch.equal(p, q) for p, q in zip(grads, again)),
+                    f"growth backward {name} c={c} is repeatable bit for bit")
     return worst
 
 
 def growth_times(torch, smi):
     """Growth forward and backward per train step (the 16 layers at B=16),
-    kernel vs plain (autograd over F.conv2d), by CUDA events."""
+    kernel vs plain (autograd over F.conv2d) and vs the module route (the
+    unfused BN -> ReLU -> conv layer of ``models.cdan.DenseBlock`` in train
+    mode under a bf16 autocast, forward and backward through cuDNN: the route
+    ``fused_dense: false`` trains with; a yardstick the port never calls), by
+    CUDA events."""
+    from torch import nn
+
+    from multi_degradation_image_enhancement_tpu_torch.models.norm import BatchNorm2d
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
         growth_layer_bwd, growth_layer_fwd, growth_layer_plain,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    ms = {"fwd": 0.0, "bwd": 0.0, "plain_fwd": 0.0, "plain_bwd": 0.0}
+    ms = {"fwd": 0.0, "bwd": 0.0, "plain_fwd": 0.0, "plain_bwd": 0.0, "module_fwd": 0.0,
+          "module_bwd": 0.0}
     for name, c_in, (h, w) in GT_BLOCKS:
         block = dict.fromkeys(ms, 0.0)
         for i in range(4):
-            x, a, b, wt, bias, r = _growth_inputs(torch, TRAIN_BATCH, c_in + 16 * i, h, w, gen)
+            c = c_in + 16 * i
+            x, a, b, wt, bias, r = _growth_inputs(torch, TRAIN_BATCH, c, h, w, gen)
             w16 = wt.to(torch.bfloat16)
             block["fwd"] += cuda_ms(lambda: growth_layer_fwd(x, a, b, w16, bias), 5)
             block["bwd"] += cuda_ms(lambda: growth_layer_bwd(x, r, a, b, w16), 5)
@@ -499,14 +517,34 @@ def growth_times(torch, smi):
             block["plain_bwd"] += cuda_ms(
                 lambda: torch.autograd.grad(g, leaves, r, retain_graph=True), 3)
             del g, leaves
+            layer = nn.Sequential(BatchNorm2d(c), nn.ReLU(), nn.Conv2d(c, 16, 3, padding=1))
+            layer = layer.to("cuda").train()
+            xl = x.clone().requires_grad_(True)
+
+            def module_fwd():
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    return layer(xl)
+
+            block["module_fwd"] += cuda_ms(module_fwd, 5)
+            out = module_fwd()
+            r16 = r.to(out.dtype)
+            block["module_bwd"] += cuda_ms(lambda: torch.autograd.grad(
+                out, [xl, *layer.parameters()], r16, retain_graph=True), 5)
+            del out, layer, xl
         say("times", f"[{smi}] growth {name} (4 layers, B={TRAIN_BATCH} {h}x{w}): kernel fwd "
             f"{block['fwd']:.3f} bwd {block['bwd']:.3f} ms; plain fwd {block['plain_fwd']:.3f} "
-            f"bwd {block['plain_bwd']:.3f} ms")
+            f"bwd {block['plain_bwd']:.3f} ms; module route fwd {block['module_fwd']:.3f} bwd "
+            f"{block['module_bwd']:.3f} ms")
         for k in ms:
             ms[k] += block[k]
-    say("times", f"[{smi}] growth layers per train step: kernel fwd {ms['fwd']:.3f} + bwd "
-        f"{ms['bwd']:.3f} = {ms['fwd'] + ms['bwd']:.3f} ms; plain fwd {ms['plain_fwd']:.3f} + "
-        f"bwd {ms['plain_bwd']:.3f} = {ms['plain_fwd'] + ms['plain_bwd']:.3f} ms")
+    fwd_bound, fwd_by = bound(*growth_train_work(False))
+    bwd_bound, bwd_by = bound(*growth_train_work(True))
+    say("times", f"[{smi}] growth layers per train step: kernel fwd {ms['fwd']:.3f} (bound "
+        f"{fwd_bound:.3f} by {fwd_by}) + bwd {ms['bwd']:.3f} (bound {bwd_bound:.3f} by {bwd_by}) "
+        f"= {ms['fwd'] + ms['bwd']:.3f} ms; plain fwd {ms['plain_fwd']:.3f} + bwd "
+        f"{ms['plain_bwd']:.3f} = {ms['plain_fwd'] + ms['plain_bwd']:.3f} ms; module route fwd "
+        f"{ms['module_fwd']:.3f} + bwd {ms['module_bwd']:.3f} = "
+        f"{ms['module_fwd'] + ms['module_bwd']:.3f} ms")
     return ms
 
 
@@ -1205,11 +1243,14 @@ def perceptual_times(torch, smi, engine, noise_ms):
     return full, bare
 
 
+GROWTH_KERNELS = ("growth_fwd_kernel", "growth_bwd_kernel", "growth_bwd_sum_kernel")
+
+
 def profile_step(torch, smi, engine, steps: int = 3):
     """``torch.profiler`` over ``steps`` train steps of ``engine`` after two
     warm-up steps: the device time a step (the sum over CUDA kernel rows),
-    its share of the profiled wall time, and the ten kernels with the most
-    device time."""
+    its share of the profiled wall time, the growth-train kernels' time and
+    share of it, and the ten kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     inputs, targets, mask = next(iter(engine.dataloader))
@@ -1233,6 +1274,13 @@ def profile_step(torch, smi, engine, steps: int = 3):
     say("profile", f"[{smi}] {engine.config['name']} train step under torch.profiler: "
         f"{total_ms:.3f} ms of kernels a step, {wall_ms:.3f} ms wall, busy share "
         f"{total_ms / wall_ms:.3f}")
+    growth = {name: sum(device_us(e) for e in kernels if name in e.key) / 1e3 / steps
+              for name in GROWTH_KERNELS}
+    growth_ms = sum(growth.values())
+    require(growth_ms > 0, "the profiled train step ran the growth kernels")
+    say("profile", f"[{smi}] growth-train kernels {growth_ms:.3f} ms a step, share "
+        f"{growth_ms / total_ms:.3f} of the kernels' time: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in growth.items()))
     for e in sorted(kernels, key=lambda e: -device_us(e))[:10]:
         say("profile", f"  {device_us(e) / 1e3 / steps:8.3f} ms/step {e.count // steps:4d}x "
             f"{e.key[:110]}")
@@ -1790,6 +1838,7 @@ def main() -> int:
     with tf32_defaults(torch) as flags:  # the perceptual nets' f32 convs run as the CLI runs them
         say("times", f"jpeg_synthetic step with {flags}")
         perceptual_times(torch, smi, records["jpeg_synthetic"]["engine"], noise_train_ms)
+        profile_step(torch, smi, engine)
         profile_step(torch, smi, records["jpeg_synthetic"]["engine"])
     conv_lib_ms = library_conv_ms(torch, live)
     probes = phase_probes(torch, smi)
@@ -1824,11 +1873,13 @@ def main() -> int:
         {"name": "growth_train_fwd", "route": "cuda", "source": f"{src}/growth_train.cu",
          "replaces": f"{ref}/growth_train.py:86",  # and its tiled variant, :288
          "launches": gt_launches["growth_train_fwd"], "max_abs_err": gt_err["fwd"],
-         "ms": gt_ms["fwd"], "plain_ms": gt_ms["plain_fwd"], "library_ms": None},
+         "ms": gt_ms["fwd"], "plain_ms": gt_ms["plain_fwd"], "library_ms": None,
+         "module_route_ms": gt_ms["module_fwd"]},
         {"name": "growth_train_bwd", "route": "cuda", "source": f"{src}/growth_train.cu",
          "replaces": f"{ref}/growth_train.py:178",  # and its tiled variant, :345
          "launches": gt_launches["growth_train_bwd"], "max_abs_err": gt_err["bwd"],
-         "ms": gt_ms["bwd"], "plain_ms": gt_ms["plain_bwd"], "library_ms": None},
+         "ms": gt_ms["bwd"], "plain_ms": gt_ms["plain_bwd"], "library_ms": None,
+         "module_route_ms": gt_ms["module_bwd"]},
         {"name": "conv3x3_pool", "route": "cuda", "source": f"{src}/conv_cm.cu",
          "replaces": f"{ref}/conv_pool_cm.py:100", "launches": cm_run["launches"]["conv3x3_pool"],
          "max_abs_err": conv_err["conv3x3_pool"], "ms": cm_ms["conv3x3_pool"][0],
@@ -1861,6 +1912,8 @@ def main() -> int:
         flops, nbytes, peak = work[k["name"]]
         k["bound_ms"], k["bound_by"] = bound(flops, nbytes, peak)
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.3f} ms"
+        if "module_route_ms" in k:
+            lib += f", module route {k['module_route_ms']:.3f} ms"
         say("bounds", f"[{smi}] {k['name']}: {flops / 1e9:.1f} GFLOP ({peak}), {nbytes / 1e9:.3f} GB "
             f"-> bound {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel {k['ms']:.3f} ms "
             f"(roofline share {k['bound_ms'] / k['ms']:.1%}), plain {k['plain_ms']:.3f} ms, "

@@ -1,7 +1,9 @@
 """Two checkouts of the port on one card, in turns: the inference DenseBlock
-kernels and the serving step.
+kernels and the serving step, or (``--train``) the training growth layers and
+the train step.
 
     python -m multi_degradation_image_enhancement_tpu_torch.benchmarks.ab_trees A B [--rounds 2]
+    python -m multi_degradation_image_enhancement_tpu_torch.benchmarks.ab_trees A B --train
 
 ``A`` and ``B`` are repository roots (each holding
 ``multi_degradation_image_enhancement_tpu_torch/``), e.g. a parent commit
@@ -14,6 +16,13 @@ round, so both see the same card.  A process times, with CUDA events (mean of
 B=128·256² serving step (``init_cdan`` weights, seed 0; bf16 inputs drawn
 U(0, 1)) and the serving step itself (``serving.build_pipeline``), and prints
 one ``AB {json}`` line; the parent process prints each with its root's label.
+With ``--train`` a process times instead the bf16 train step of
+``noise_synthetic.json`` (fused DenseBlocks), on the engine ``run.main``
+leaves after one epoch of one batch of 16 (as ``chip_smoke.py``'s phases 10
+and 11; its run directory under ``build/ab_train/`` of that root), then the
+16 growth layers of a B=16·256×384 train step, forward
+(``growth_layer_fwd``) and backward (``growth_layer_bwd``) per DenseBlock
+(seeded inputs, bf16 weights).
 """
 
 from __future__ import annotations
@@ -27,6 +36,11 @@ from pathlib import Path
 # (block, c_in, side) of the four DenseBlocks at B=128·256².
 BLOCKS = (("dense1", 64, 128), ("dense2", 128, 64), ("dense3", 256, 32), ("final_dense", 3, 256))
 BATCH = 128
+# (block, c_in, (H, W)) of the four DenseBlocks of a B=16·256×384 train step.
+TRAIN_BLOCKS = (("dense1", 64, (128, 192)), ("dense2", 128, (64, 96)), ("dense3", 256, (32, 48)),
+                ("final_dense", 3, (256, 384)))
+TRAIN_BATCH = 16
+TRAIN_CONFIG = "multi_degradation_image_enhancement_tpu/config/noise_synthetic.json"
 
 
 def measure(root: Path) -> dict:
@@ -65,15 +79,74 @@ def measure(root: Path) -> dict:
     return rec
 
 
+def measure_train(root: Path) -> dict:
+    """The train-step and growth-layer times of the package under ``root``."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from multi_degradation_image_enhancement_tpu_torch import run
+    from multi_degradation_image_enhancement_tpu_torch.benchmarks import cuda_ms, require_cuda
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer_bwd,
+        growth_layer_fwd,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
+
+    require_cuda()
+    if not _build.CSRC_DIR.is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported the package from {_build.CSRC_DIR}, not from {root}")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rec = {}
+
+    # The engine as the CLI leaves it: one epoch of one batch, then the step
+    # timed on one loader batch.
+    work = root / "build" / "ab_train"
+    cfg = json.loads(json.dumps(load_config(str(root / TRAIN_CONFIG))))
+    cfg["train"].update(n_epoch=1, model_path=str(work / "weights"))
+    cfg["train"]["dataset"]["args"]["n_images"] = TRAIN_BATCH
+    cfg["logging"]["root_dir"] = str(work / "runs")
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "config.json").write_text(json.dumps(cfg))
+    engine = run.main(load_config(str(work / "config.json"), phase="train"))
+    inputs, targets, mask = next(iter(engine.dataloader))
+    step_gen = torch.Generator(device=dev).manual_seed(5)
+    rec["train_step_ms"] = cuda_ms(
+        lambda: engine._train_step(engine.state, inputs, targets, step_gen, mask), 10, 3)
+    rec["train_img_s"] = TRAIN_BATCH / rec["train_step_ms"] * 1e3
+    del engine, inputs, targets, mask
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for name, c_in, (h, w) in TRAIN_BLOCKS:
+        fwd = bwd = 0.0
+        for i in range(4):
+            c = c_in + 16 * i
+            x = torch.randn((TRAIN_BATCH, c, h, w), device=dev, generator=gen)
+            a = torch.rand(c, device=dev, generator=gen) + 0.5
+            b = torch.randn(c, device=dev, generator=gen) * 0.1
+            w16 = (torch.randn((16, c, 3, 3), device=dev, generator=gen) * 0.1).to(torch.bfloat16)
+            bias = torch.randn(16, device=dev, generator=gen) * 0.1
+            dg = torch.randn((TRAIN_BATCH, 16, h, w), device=dev, generator=gen)
+            fwd += cuda_ms(lambda: growth_layer_fwd(x, a, b, w16, bias), 10)
+            bwd += cuda_ms(lambda: growth_layer_bwd(x, dg, a, b, w16), 10)
+        rec[f"{name}_fwd"], rec[f"{name}_bwd"] = fwd, bwd
+    rec["growth_fwd"] = sum(rec[f"{n}_fwd"] for n, _, _ in TRAIN_BLOCKS)
+    rec["growth_bwd"] = sum(rec[f"{n}_bwd"] for n, _, _ in TRAIN_BLOCKS)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("a", type=Path)
     ap.add_argument("b", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--train", action="store_true",
+                    help="time the training growth layers and the train step")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)  # a child process
     args = ap.parse_args(argv)
     if args.one:
-        print("AB " + json.dumps(measure(args.a)), flush=True)
+        print("AB " + json.dumps((measure_train if args.train else measure)(args.a)), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -83,7 +156,8 @@ def main(argv=None) -> int:
     for _ in range(args.rounds):
         for root in (*roots, *roots[::-1]):
             # run this file by path, so the child imports the package from ``root`` only
-            proc = subprocess.run([sys.executable, __file__, str(root), str(root), "--one"],
+            cmd = [sys.executable, __file__, str(root), str(root), "--one"]
+            proc = subprocess.run(cmd + ["--train"] * args.train,
                                   capture_output=True, text=True, cwd=root, timeout=900)
             line = next((ln[3:] for ln in proc.stdout.splitlines() if ln.startswith("AB ")), None)
             failed |= line is None

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (probe_matmul.cu, conv_cm.cu, probe_transpose.cu, dense_block.cu): mbarriers, TMA loads and stores, wgmma
+// (probe_matmul.cu, conv_cm.cu, probe_transpose.cu, dense_block.cu,
+// growth_train.cu): mbarriers, TMA loads and stores, wgmma
 // shared-memory descriptors, the bf16 m64nNk16 wgmma instructions, and the
 // host-side encoding of TMA tensor maps.
 //
@@ -19,6 +20,12 @@
 //     along M or N.  A 16-element K step advances the start by 2 LBO.  The
 //     start only needs 16-byte alignment, so a window shifted by whole
 //     16-byte rows (dense_block.cu's tap shifts) is a legal operand.
+//   MN-major, no swizzle (interleave; CUTLASS's ((T,1,m),(8,k)):((1,T,SBO),
+//     (1T,LBO))): core matrices of 8 K rows x 16 bytes (8 bf16 along M or
+//     N), each 128 contiguous bytes; SBO = the stride from one 8-wide MN
+//     group to the next, LBO = the stride of 8-row K groups.  A staged box
+//     [channel group][pixel][8 channels] is such an operand with M or N =
+//     channels and K = pixels (growth_train.cu's weight gradient).
 // TMA writes exactly these layouts when the box's inner extent is the
 // swizzle span (128 bytes) and the map names the same swizzle.  A TMA box
 // must start 16-byte aligned in the innermost dimension: an unaligned start
@@ -207,6 +214,19 @@ __device__ __forceinline__ void wgmma_m64n16k16(float* d, uint64_t desc_a, uint6
 }
 
 template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n32k16(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -283,9 +303,10 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint
 // an MN-major operand (bf16 allows either major for both).
 template <int N, int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t desc_a, uint64_t desc_b) {
-  static_assert(N == 8 || N == 16 || N == 64 || N == 128 || N == 256, "wgmma width");
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128 || N == 256, "wgmma width");
   if constexpr (N == 8) wgmma_m64n8k16<kTransA, kTransB>(d, desc_a, desc_b);
   if constexpr (N == 16) wgmma_m64n16k16<kTransA, kTransB>(d, desc_a, desc_b);
+  if constexpr (N == 32) wgmma_m64n32k16<kTransA, kTransB>(d, desc_a, desc_b);
   if constexpr (N == 64) wgmma_m64n64k16<kTransA, kTransB>(d, desc_a, desc_b);
   if constexpr (N == 128) wgmma_m64n128k16<kTransA, kTransB>(d, desc_a, desc_b);
   if constexpr (N == 256) wgmma_m64n256k16<kTransA, kTransB>(d, desc_a, desc_b);

@@ -19,11 +19,18 @@ weights are bf16 matmul operands; the incoming gradient is rounded to bf16
 before it meets them (the TPU kernel's ``dgs``); products accumulate in f32;
 ``dbias`` is a plain f32 sum of the unrounded gradient.
 
+The kernels are implicit GEMMs on the tensor cores.  Their weights are packed
+once per call, K-major with zeros past c: :func:`pack_fwd_weights` for the
+forward (``[ceil(c/32), 9, 4, 16, 8]``: chunk of 32 channels, tap, channel
+group, output, channel) and :func:`pack_dv_weights` for the backward's dv
+(``[ceil(c/64), 9, 2, 64, 8]``: chunk of 64 channels, tap, output group,
+channel, output; the taps flipped).
+
 :func:`growth_layer` takes the plain version only for a tensor on the CPU.
 For a CUDA tensor it launches the kernels or raises; ``growth_layer_fwd.
 launches`` and ``growth_layer_bwd.launches`` count one per layer call (the
-backward's call issues five kernels: dv, dw partials and three fixed-order
-column sums).
+backward's call issues two kernels: dv, dx and the dW, da, db partials in one,
+then a fixed-order sum of the partials).
 """
 
 from __future__ import annotations
@@ -90,13 +97,41 @@ def _check(x, a, b, w16, bias=None):
         _build.require(bias, "bias", torch.float32, (GROWTH,))
 
 
+FWD_CHUNK, DV_CHUNK = 32, 64  # channels of the kernels' K chunk (forward) and block (backward)
+
+
+def _pad_channels(w, chunk):
+    c = w.shape[1]
+    return torch.nn.functional.pad(w, (0, 0, 0, 0, 0, -c % chunk))
+
+
+def pack_fwd_weights(w):
+    """OIHW ``w [16, c, 3, 3]`` → the forward kernel's ``[ceil(c/32), 9, 4,
+    16, 8]``: element ``[k, 3ky+kx, g, o, i] = w[o, 32k + 8g + i, ky, kx]``,
+    zeros past c."""
+    wp = _pad_channels(w, FWD_CHUNK)
+    n = wp.shape[1] // FWD_CHUNK
+    return wp.reshape(GROWTH, n, FWD_CHUNK // 8, 8, 9).permute(1, 4, 2, 0, 3).contiguous()
+
+
+def pack_dv_weights(w):
+    """OIHW ``w [16, c, 3, 3]`` → the backward kernel's dv operand
+    ``[ceil(c/64), 9, 2, 64, 8]``: element ``[k, 3ky+kx, g, j, i] =
+    w[8g + i, 64k + j, 2-ky, 2-kx]`` (the transposed conv's flipped taps),
+    zeros past c."""
+    wp = _pad_channels(w.flip(2, 3), DV_CHUNK)
+    n = wp.shape[1] // DV_CHUNK
+    return wp.reshape(2, 8, n, DV_CHUNK, 9).permute(2, 4, 0, 3, 1).contiguous()
+
+
 def growth_layer_fwd(x, a, b, w16, bias):
-    """Forward kernel: ``g [B, 16, H, W]`` f32 from f32 ``x`` and bf16 ``w16``."""
+    """Forward kernel: ``g [B, 16, H, W]`` f32 from f32 ``x`` and bf16 OIHW ``w16``."""
     _check(x, a, b, w16, bias)
     bsz, c, h, w = x.shape
+    wk = pack_fwd_weights(w16)
     g = torch.empty((bsz, GROWTH, h, w), dtype=torch.float32, device=x.device)
     err = _build.load().mdie_growth_fwd(
-        x.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(), w16.data_ptr(),
+        x.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(), wk.data_ptr(),
         bias.data_ptr(), g.data_ptr(), _build.stream_of(x),
     )
     _build.check(err, "growth_layer forward")
@@ -113,6 +148,7 @@ def growth_layer_bwd(x, dg, a, b, w16):
     bsz, c, h, w = x.shape
     _build.require(dg, "dg", torch.float32, (bsz, GROWTH, h, w))
     lib = _build.load()
+    wdv = pack_dv_weights(w16)
     dx = torch.empty_like(x)
     dw = torch.empty((GROWTH, c, 3, 3), dtype=torch.float32, device=x.device)
     da = torch.empty((c,), dtype=torch.float32, device=x.device)
@@ -121,7 +157,7 @@ def growth_layer_bwd(x, dg, a, b, w16):
         (lib.mdie_growth_bwd_scratch(bsz, c, h, w),), dtype=torch.float32, device=x.device
     )
     err = lib.mdie_growth_bwd(
-        x.data_ptr(), dg.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(), w16.data_ptr(),
+        x.data_ptr(), dg.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(), wdv.data_ptr(),
         dx.data_ptr(), dw.data_ptr(), da.data_ptr(), db.data_ptr(), scratch.data_ptr(),
         _build.stream_of(x),
     )
