@@ -35,9 +35,10 @@ line per phase, and exits non-zero at the first failure:
     step, kernel vs its bound, plain and the module route (the unfused BN ->
     ReLU -> conv layer under a bf16 autocast, cuDNN);
 12. conv kernels vs their plain versions, TF32 off: conv+pool (#9) at conv1
-    of B=128·256² and B=16·256×384, conv (#8) at the seven CM conv shapes of
-    B=128·256² and of B=16·256×384, at c_in 72 / c_out 3, at 32×34 and with
-    an f32 x;
+    of B=128·256² and B=16·256×384, at 8 -> 16 and 64 -> 128 channels
+    (B=3, 16×32), at a ragged 10×18 and with an f32 x; conv (#8) at the
+    seven CM conv shapes of B=128·256² and of B=16·256×384, at c_in 72 /
+    c_out 3, at 32×34 and with an f32 x;
 13. the bf16 all-channel-major forward vs the f32 ``CDAN`` at 2×256² and
     2×256×384, with the default conv table and with every conv on #8;
 14. the DenseBlock kernel at the block shapes where the JAX package takes
@@ -49,8 +50,10 @@ line per phase, and exits non-zero at the first failure:
     images, scoring the checkpoint of phase 10: as shipped, with
     ``MDIE_SERVING_TUNING`` naming a tuning copy with ``prefer_cm: true``,
     and with the test images resized to 480×640 (the #3 route);
-17. times: #8 and #9 vs plain, the CM vs the per-block forward, the eval
-    step per B=16 batch, the whole ``-p test``;
+17. times: #8 and #9 vs plain, #9 also vs its cuDNN module route (bf16
+    ``F.conv2d`` + bias, ReLU, ``F.max_pool2d``: a yardstick the port never
+    calls), the CM vs the per-block forward, the eval step per B=16 batch,
+    the whole ``-p test``;
 18. ``fused_dense_block`` (#10's entry) vs its plain version at the four
     block shapes of the B=16·256×384 forward, f32 and bf16 x,
     ``LAUNCHES_PER_BLOCK`` (6) launches a call (entry pass, 4 growth layers,
@@ -766,11 +769,13 @@ def _conv_pairs(torch, model, bsz=BENCH_BATCH, hw=(BENCH_SIZE, BENCH_SIZE)):
 def phase_conv_kernels(torch, model):
     """#9 and #8 (bf16 in and out) vs their plain versions on the same bf16
     inputs in f32, TF32 off: max <= 5e-2, mean <= 5e-3
-    (tests/test_pallas_kernels.py:259-260,299-300).  #8 at the seven CM
-    conv shapes of B=128·256² and of B=16·256×384, at c_in = 72 (a ragged
-    64-channel K step) with c_out = 3, at 32×34 (rows of 34 pixels: the
-    8-pixel tiles and the edge) and with an f32 x (rounded to bf16 by the
-    NHWC pass, f32 out)."""
+    (tests/test_pallas_kernels.py:259-260,299-300).  #9 at conv1 of both
+    serving shapes, at c_in 8 -> c_out 16 and 64 -> 128 (B=3, 16×32: K
+    chunks, several M tiles), at a ragged 10×18 (pooled 5×9: clipped tiles)
+    and with an f32 x (f32 out).  #8 at the seven CM conv shapes of
+    B=128·256² and of B=16·256×384, at c_in = 72 (a ragged 64-channel K
+    step) with c_out = 3, at 32×34 (rows of 34 pixels: the 8-pixel tiles and
+    the edge) and with an f32 x (rounded to bf16 by the NHWC pass, f32 out)."""
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
         conv3x3, conv3x3_plain, conv3x3_pool, conv3x3_pool_plain, pack_conv,
     )
@@ -787,6 +792,15 @@ def phase_conv_kernels(torch, model):
                   torch.rand((2, 64, 32, 34), device=dev, generator=g).to(torch.bfloat16)))
     _, f32_pack, f32_x = convs[len(CM_CONVS)]  # conv2 at the eval shape, f32 in and out
     convs.append(("conv2 B=16 128x192 f32", f32_pack, f32_x.float()))
+    for c_in, c_out in ((8, 16), (64, 128)):
+        w = torch.randn((c_out, c_in, 3, 3), device=dev, generator=g) * (2.0 / (9 * c_in)) ** 0.5
+        pool.append((f"{c_in}->{c_out} B=3 16x32", pack_conv(
+            w, torch.randn((c_out,), device=dev, generator=g) * 0.1, device=dev),
+            torch.rand((3, c_in, 16, 32), device=dev, generator=g).to(torch.bfloat16)))
+    conv1 = pool[0][1]
+    pool.append(("conv1 B=2 10x18", conv1,
+                 torch.rand((2, 3, 10, 18), device=dev, generator=g).to(torch.bfloat16)))
+    pool.append(("conv1 B=16 256x384 f32", conv1, pool[1][2].float()))
     worst = {"conv3x3_pool": 0.0, "conv3x3": 0.0}
     for kname, kern, plain, pairs in (("conv3x3_pool", conv3x3_pool, conv3x3_pool_plain, pool),
                                       ("conv3x3", conv3x3, conv3x3_plain, convs)):
@@ -1030,9 +1044,9 @@ def phase_cli_test(torch, train_engine):
 
 
 def eval_times(torch, smi, model, shipped, step, step_k, clean):
-    """CUDA-event times: #8 and #9 vs plain, the CM vs the per-block
-    forward, the eval step per B=16 batch, the DenseBlock at the photo
-    shape; with the wall time of each ``-p test``."""
+    """CUDA-event times: #8 and #9 vs plain, #9 vs its cuDNN module route,
+    the CM vs the per-block forward, the eval step per B=16 batch, the
+    DenseBlock at the photo shape; with the wall time of each ``-p test``."""
     from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
         conv3x3, conv3x3_plain, conv3x3_pool, conv3x3_pool_plain,
@@ -1054,6 +1068,15 @@ def eval_times(torch, smi, model, shipped, step, step_k, clean):
         times[kname] = (k_ms, p_ms)
     say("times", f"[{smi}] conv3x3 x7 per B={BENCH_BATCH}x{BENCH_SIZE}^2 CM forward: kernel "
         f"{times['conv3x3'][0]:.3f} ms, plain {times['conv3x3'][1]:.3f} ms")
+    import torch.nn.functional as F
+
+    label, pack, x = pool[0]
+    b16 = pack.bias.to(torch.bfloat16)
+    times["conv3x3_pool_module_ms"] = cuda_ms(
+        lambda: F.max_pool2d(torch.relu(F.conv2d(x, pack.w_bf16, b16, padding=1)), 2), 10)
+    say("times", f"[{smi}] conv3x3_pool {label} bf16: module route (cuDNN conv + bias, ReLU, "
+        f"max_pool2d) {times['conv3x3_pool_module_ms']:.3f} ms, kernel "
+        f"{times['conv3x3_pool'][0]:.3f} ms")
 
     model = model.to(dev)
     g = torch.Generator(device=dev).manual_seed(16)
@@ -1883,7 +1906,8 @@ def main() -> int:
         {"name": "conv3x3_pool", "route": "cuda", "source": f"{src}/conv_cm.cu",
          "replaces": f"{ref}/conv_pool_cm.py:100", "launches": cm_run["launches"]["conv3x3_pool"],
          "max_abs_err": conv_err["conv3x3_pool"], "ms": cm_ms["conv3x3_pool"][0],
-         "plain_ms": cm_ms["conv3x3_pool"][1], "library_ms": None},
+         "plain_ms": cm_ms["conv3x3_pool"][1], "library_ms": None,
+         "module_route_ms": cm_ms["conv3x3_pool_module_ms"]},
         {"name": "conv3x3", "route": "cuda", "source": f"{src}/conv_cm.cu",
          "replaces": f"{ref}/conv_cm.py:49", "launches": cm_launches["kernel"]["conv3x3"],
          "max_abs_err": conv_err["conv3x3"], "ms": cm_ms["conv3x3"][0],

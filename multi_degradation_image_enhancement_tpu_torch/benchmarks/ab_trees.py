@@ -1,9 +1,11 @@
 """Two checkouts of the port on one card, in turns: the inference DenseBlock
-kernels and the serving step, or (``--train``) the training growth layers and
-the train step.
+kernels and the serving step, (``--train``) the training growth layers and
+the train step, or (``--kernels``) conv1 + pool (#9), the int8 probe GEMM
+(#11 int8) and the ``prefer_cm`` serving step.
 
     python -m multi_degradation_image_enhancement_tpu_torch.benchmarks.ab_trees A B [--rounds 2]
     python -m multi_degradation_image_enhancement_tpu_torch.benchmarks.ab_trees A B --train
+    python -m multi_degradation_image_enhancement_tpu_torch.benchmarks.ab_trees A B --kernels
 
 ``A`` and ``B`` are repository roots (each holding
 ``multi_degradation_image_enhancement_tpu_torch/``), e.g. a parent commit
@@ -22,7 +24,12 @@ leaves after one epoch of one batch of 16 (as ``chip_smoke.py``'s phases 10
 and 11; its run directory under ``build/ab_train/`` of that root), then the
 16 growth layers of a B=16·256×384 train step, forward
 (``growth_layer_fwd``) and backward (``growth_layer_bwd``) per DenseBlock
-(seeded inputs, bf16 weights).
+(seeded inputs, bf16 weights).  With ``--kernels`` a process times
+``conv3x3_pool`` on conv1 of the CM forward at both serving shapes
+(B=128·256² and B=16·256×384; ``init_cdan`` weights, seed 0, folded; bf16
+inputs drawn U(0, 1)), ``probe_matmul`` on the int8 probe's operands (32 ×
+[1536,512]·[512,2048], ``exp_int8_reprobe.make_operands``) and the serving
+step with ``prefer_cm`` (the CM forward) at B=128·256².
 """
 
 from __future__ import annotations
@@ -136,6 +143,48 @@ def measure_train(root: Path) -> dict:
     return rec
 
 
+def measure_kernels(root: Path) -> dict:
+    """#9, #11 int8 and the ``prefer_cm`` serving step of the package under ``root``."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    from multi_degradation_image_enhancement_tpu_torch import serving
+    from multi_degradation_image_enhancement_tpu_torch.benchmarks import cuda_ms, require_cuda
+    from multi_degradation_image_enhancement_tpu_torch.benchmarks.exp_int8_reprobe import (
+        make_operands,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import init_cdan
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import _fold_all
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
+        conv3x3_pool,
+        pack_conv,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_matmul import probe_matmul
+
+    require_cuda()
+    if not _build.CSRC_DIR.is_relative_to(root.resolve()):
+        raise RuntimeError(f"imported the package from {_build.CSRC_DIR}, not from {root}")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    pack = pack_conv(*_fold_all(init_cdan(torch.Generator().manual_seed(0)))["conv1"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rec = {}
+    for label, bsz, (h, w) in (("conv1_pool_256x256", BATCH, (256, 256)),
+                               ("conv1_pool_256x384", TRAIN_BATCH, (256, 384))):
+        x = torch.rand((bsz, 3, h, w), device=dev, generator=gen).to(torch.bfloat16)
+        rec[label] = cuda_ms(lambda: conv3x3_pool(x, pack), 20)
+        del x
+    a, b = make_operands(torch.int8)
+    rec["probe_int8"] = cuda_ms(lambda: probe_matmul(a, b), 20)
+    del a, b
+    step, clean = serving.build_pipeline(BATCH, 256, torch.bfloat16, "cuda", prefer_cm=True)
+    step_gen = torch.Generator().manual_seed(1)
+    rec["cm_step_ms"] = cuda_ms(lambda: step(clean, step_gen), 10)
+    rec["cm_img_s"] = BATCH / rec["cm_step_ms"] * 1e3
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("a", type=Path)
@@ -143,10 +192,16 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--train", action="store_true",
                     help="time the training growth layers and the train step")
+    ap.add_argument("--kernels", action="store_true",
+                     help="time #9, #11 int8 and the prefer_cm serving step")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)  # a child process
     args = ap.parse_args(argv)
+    if args.train and args.kernels:
+        ap.error("--train and --kernels are two modes: pick one")
+    mode = ["--train"] * args.train + ["--kernels"] * args.kernels
     if args.one:
-        print("AB " + json.dumps((measure_train if args.train else measure)(args.a)), flush=True)
+        fn = measure_train if args.train else measure_kernels if args.kernels else measure
+        print("AB " + json.dumps(fn(args.a)), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -157,7 +212,7 @@ def main(argv=None) -> int:
         for root in (*roots, *roots[::-1]):
             # run this file by path, so the child imports the package from ``root`` only
             cmd = [sys.executable, __file__, str(root), str(root), "--one"]
-            proc = subprocess.run(cmd + ["--train"] * args.train,
+            proc = subprocess.run(cmd + mode,
                                   capture_output=True, text=True, cwd=root, timeout=900)
             line = next((ln[3:] for ln in proc.stdout.splitlines() if ln.startswith("AB ")), None)
             failed |= line is None

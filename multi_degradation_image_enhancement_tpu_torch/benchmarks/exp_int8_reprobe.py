@@ -2,13 +2,17 @@
 ``benchmarks/exp_int8_reprobe.py``).
 
     python -m multi_degradation_image_enhancement_tpu_torch.benchmarks.exp_int8_reprobe [--iters 20]
+    python -m multi_degradation_image_enhancement_tpu_torch.benchmarks.exp_int8_reprobe --profile
 
 Times the hand-written batched GEMM (``ops.cuda.probe_matmul``, TPU kernel
 #11) on the probe's 32 blocks of [1536,512]×[512,2048], bf16 → f32 → bf16
 and int8 → i32 → i32, beside the library's own call (``torch.bmm`` in bf16,
 ``torch._int_mm`` per block for int8, which has no batched form), by CUDA
 events, and prints ms and T(FL)OP/s for each.  The operands are seeded
-random values (the JAX probe's ones would hide a wrong index).
+random values (the JAX probe's ones would hide a wrong index).  With
+``--profile`` it prints instead, from ``torch.profiler`` over ``--iters``
+int8 calls in a fresh process, the device ms a call of each of the int8
+call's two launches: the K-major pass of b and the GEMM.
 """
 
 from __future__ import annotations
@@ -71,10 +75,36 @@ def run(iters: int = 20) -> dict:
     return rows
 
 
+def profile_int8(iters: int = 20) -> dict:
+    """Device ms a call of each kernel of the int8 call, by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    require_cuda()
+    a, b = make_operands(torch.int8)
+    probe_matmul(a, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            probe_matmul(a, b)
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if us and str(e.device_type).endswith("CUDA"):
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            ms[name] = ms.get(name, 0.0) + us / 1e3 / iters
+    for name, t in ms.items():
+        print(f"profile int8->i32 {name}: {t:8.4f} ms a call", flush=True)
+    return ms
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=20)
-    run(ap.parse_args().iters)
+    ap.add_argument("--profile", action="store_true",
+                    help="the device ms of the int8 call's two launches instead")
+    args = ap.parse_args()
+    (profile_int8 if args.profile else run)(args.iters)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (probe_matmul.cu, conv_cm.cu, probe_transpose.cu, dense_block.cu,
 // growth_train.cu): mbarriers, TMA loads and stores, wgmma
-// shared-memory descriptors, the bf16 m64nNk16 wgmma instructions, and the
-// host-side encoding of TMA tensor maps.
+// shared-memory descriptors, the bf16 m64nNk16 (A from shared memory or
+// registers) and s8 m64nNk32 wgmma instructions, and the host-side encoding of TMA tensor maps.
 //
 // Shared-memory operand layouts (PTX ISA, "Matrix Descriptor"; CUTLASS's
 // canonical GMMA layouts).  Every swizzled tile starts on a 1024-byte
@@ -312,6 +312,74 @@ __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t desc_a, uint64_t d
   if constexpr (N == 256) wgmma_m64n256k16<kTransA, kTransB>(d, desc_a, desc_b);
 }
 
+// A from registers (the "RS" form): m64nNk16, bf16, A in the thread's four
+// 32-bit registers of the mma.m16n8k16 A fragment of its warp's 16 rows
+// (a0: row g, k 2t..2t+1; a1: row g + 8; a2, a3: the same at k + 8; g =
+// lane / 4, t = lane % 4; the lower k in the low half), B K-major from shared
+// memory.  A register read by a wgmma in flight must not change before it
+// completes.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_bf16(float* d, const uint32_t* a, uint64_t desc_b) {
+  static_assert(N == 64, "wgmma width: add the instruction of another N here");
+  wgmma_m64n64k16_rs(d, a, desc_b);
+}
+
+// 8-bit operands (s8 x s8 -> s32, exact): m64nNk32, both operands K-major
+// from shared memory (8-bit wgmma has no transpose bit), 32 bytes of K a
+// step, so its descriptors are those of a bf16 k16 step.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t desc_a, uint64_t desc_b) {
+  static_assert(N == 128, "wgmma width: add the instruction of another N here");
+  wgmma_m64n128k32_s8(d, desc_a, desc_b);
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // ------------------------------------------------------------ host helpers
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -335,12 +403,12 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of ``rank`` dims (innermost first): ``dims`` elements,
+// A tensor map of ``rank`` dims (innermost first) of element ``type``: ``dims`` elements,
 // ``strides_bytes`` for dims 1.., ``box`` elements.  Out-of-bounds elements
 // of a load read 0; those of a store are not written.
-inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
-                                 const uint64_t* dims, const uint64_t* strides_bytes,
-                                 const uint32_t* box, CUtensorMapSwizzle swizzle) {
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                            int rank, const uint64_t* dims, const uint64_t* strides_bytes,
+                            const uint32_t* box, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint64_t d[5], s[4];
@@ -351,10 +419,16 @@ inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides_bytes[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), d,
                         s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                                 const uint64_t* dims, const uint64_t* strides_bytes,
+                                 const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides_bytes, box,
+                  swizzle);
 }
 
 inline int sm_count() {

@@ -140,9 +140,9 @@ def _declare(lib, ctypes) -> None:
         "mdie_growth_bwd_scratch": [i, i, i, i],  # returns a float count
         # conv_cm.cu
         "mdie_conv3x3": [p, i, i, i, i, i, p, p, i, i, p, i, i, p, p],
-        "mdie_conv3x3_pool": [p, i, i, i, i, i, p, p, i, p, p],
+        "mdie_conv3x3_pool": [p, i, i, i, i, i, p, i, i, p, i, p, i, p],
         # probe_matmul.cu
-        "mdie_probe_matmul": [p, p, i, i, i, i, i, p, p],
+        "mdie_probe_matmul": [p, p, i, i, i, i, i, p, p, p],
         # probe_transpose.cu
         "mdie_probe_transpose": [p, i, i, i, p, p],
         "mdie_probe_rhsT": [p, p, i, i, p, p],

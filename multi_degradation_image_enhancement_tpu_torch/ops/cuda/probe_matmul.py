@@ -10,10 +10,13 @@ K, N]``, in one of the probe's two type sets:
 
 :func:`probe_matmul` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises; ``probe_matmul.launches``
-counts one per launch.  What the kernel takes is :func:`launch_error`'s:
+counts one per call.  What the kernel takes is :func:`launch_error`'s:
 bf16 (wgmma fed by TMA) any M and K and N multiples of 8, the TMA maps'
-16-byte row strides; int8 (``mma.sync``) M and N multiples of 128, K of 32,
-at most 65535 blocks.
+16-byte row strides; int8 M and N multiples of 128, K of 32, at most 65535
+batch entries.  The int8 call is two launches: a pass that turns b into a
+K-major int8 scratch (:func:`kmajor_b` is its plain counterpart), since
+8-bit ``wgmma`` reads both operands K-major only, then a persistent TMA-fed
+``wgmma`` GEMM over 128×128 tiles, K steps of 128, 32 a product.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import torch
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
 
 OUT_DTYPE = {torch.bfloat16: torch.bfloat16, torch.int8: torch.int32}
-_INT8_MN, _INT8_K = 128, 32  # the int8 kernel's output tile and K step
+INT8_TILE = 128  # the int8 GEMM's output tile (M and N) and K step (128 bytes, one TMA box row)
+INT8_MMA_K = 32  # K of one 8-bit wgmma
+_INT8_K = 32  # K granule of the transpose pass's tiles
 
 
 @contextlib.contextmanager
@@ -57,6 +62,13 @@ def probe_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.bmm(a.float(), b.float()).to(OUT_DTYPE[a.dtype])
 
 
+def kmajor_b(b: torch.Tensor) -> torch.Tensor:
+    """Plain counterpart of the int8 kernel's first pass: ``b`` ``[batch, K,
+    N]`` as ``[batch, N, K]``, contiguous (K-major, as 8-bit ``wgmma`` reads
+    its B operand)."""
+    return b.transpose(1, 2).contiguous()
+
+
 def launch_error(dtype: torch.dtype, batch: int, m: int, k: int, n: int) -> Optional[str]:
     """Why the kernel cannot take ``[batch, m, k] @ [batch, k, n]`` of
     ``dtype``, or None.  bf16: rows of a, b and o are TMA strides, so K and N
@@ -67,8 +79,8 @@ def launch_error(dtype: torch.dtype, batch: int, m: int, k: int, n: int) -> Opti
         if k % 8 or n % 8:
             return f"bf16 K={k} and N={n} must be multiples of 8 (16-byte TMA row strides)"
         return None
-    if m % _INT8_MN or n % _INT8_MN or k % _INT8_K:
-        return (f"int8 M={m} and N={n} must be multiples of {_INT8_MN}, K={k} of {_INT8_K}")
+    if m % INT8_TILE or n % INT8_TILE or k % _INT8_K:
+        return (f"int8 M={m} and N={n} must be multiples of {INT8_TILE}, K={k} of {_INT8_K}")
     if batch > _build.MAX_GRID_YZ:
         return f"int8 batch {batch} outside 1..{_build.MAX_GRID_YZ}"
     return None
@@ -76,7 +88,8 @@ def launch_error(dtype: torch.dtype, batch: int, m: int, k: int, n: int) -> Opti
 
 def probe_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``o[i] = a[i] @ b[i]``: bf16 → bf16 (f32 accumulation) or int8 → int32.
-    CPU: the plain version; CUDA: one kernel launch."""
+    CPU: the plain version; CUDA: the kernel (bf16 one launch, int8 two: the
+    K-major pass of b, then the GEMM)."""
     _check(a, b)
     if a.device.type == "cpu":
         return probe_matmul_plain(a, b)
@@ -90,8 +103,10 @@ def probe_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if t.data_ptr() % 16:
             raise ValueError(f"probe_matmul: {name} must be 16-byte aligned")
     out = torch.empty((bsz, m, n), dtype=OUT_DTYPE[a.dtype], device=a.device)
+    int8 = a.dtype == torch.int8
+    bt = torch.empty((bsz, n, k) if int8 else (0,), dtype=torch.int8, device=a.device)
     err = _build.load().mdie_probe_matmul(
-        a.data_ptr(), b.data_ptr(), int(a.dtype == torch.int8), bsz, m, k, n, out.data_ptr(),
+        a.data_ptr(), b.data_ptr(), int(int8), bsz, m, k, n, out.data_ptr(), bt.data_ptr(),
         _build.stream_of(a),
     )
     _build.check(err, "probe_matmul")

@@ -3,7 +3,9 @@ JAX probes' own kernel bodies.
 
 Each body (``_mm_kernel``, ``kernel_rhsT``, ``kernel_lhsT``, ``kernel_jnpT``)
 runs through ``pl.pallas_call(..., interpret=True)`` with BlockSpecs built
-here, at small shapes, on the same NumPy inputs as the port.  On the CPU the
+here, at small shapes, on the same NumPy inputs as the port.  The int8
+GEMM's layout (b turned K-major by a first pass, 128×128 tiles, K steps of
+128 in 8-bit ``wgmma`` products of K = 32) is emulated in int64.  On the CPU the
 port's wrappers take their plain versions (the CUDA kernels are held against
 those on the card by chip_smoke.py).
 """
@@ -20,8 +22,12 @@ from jax.experimental import pallas as pl
 from benchmarks.exp_int8_reprobe import _mm_kernel
 from benchmarks.exp_io_transpose import kernel_jnpT, kernel_lhsT, kernel_rhsT
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_matmul import (
+    INT8_MMA_K,
+    INT8_TILE,
+    kmajor_b,
     launch_error,
     probe_matmul,
+    probe_matmul_plain,
 )
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_transpose import (
     m_dot_xt,
@@ -186,6 +192,88 @@ def test_product_launch_predicate(batch, p, why):
     multiple of 8 (the TMA maps' 16-byte row strides along P; a ragged last
     tile reads zeros and clips its store)."""
     got = product_launch_error(batch, p)
+    if why is None:
+        assert got is None
+    else:
+        assert why in got
+
+
+def test_kmajor_b_is_the_transpose():
+    """The int8 kernel's first pass turns b ``[batch, K, N]`` into a K-major
+    ``[batch, N, K]`` scratch: its plain counterpart is ``b.transpose(1, 2)``,
+    contiguous, value for value."""
+    rng = np.random.RandomState(5)
+    b = torch.from_numpy(rng.randint(-128, 128, (3, 96, 256)).astype(np.int8))
+    bt = kmajor_b(b)
+    assert bt.shape == (3, 256, 96) and bt.dtype == torch.int8 and bt.is_contiguous()
+    assert torch.equal(bt, b.transpose(1, 2))
+    assert bt[2, 255, 95] == b[2, 95, 255] and bt[1, 7, 3] == b[1, 3, 7]
+
+
+def _emulate_int8_gemm(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The int8 kernel's arithmetic in its layout, in int64: bt = b turned
+    K-major; per 128×128 output tile, K steps of 128 (zeros past K, as the
+    TMA map reads them), each four products of K = 32 into the tile's sums."""
+    bsz, m, k = a.shape
+    n = b.shape[2]
+    k_pad = -(-k // INT8_TILE) * INT8_TILE
+    a64 = np.zeros((bsz, m, k_pad), np.int64)
+    a64[..., :k] = a
+    bt = np.zeros((bsz, n, k_pad), np.int64)
+    bt[..., :k] = kmajor_b(torch.from_numpy(b)).numpy()
+    out = np.zeros((bsz, m, n), np.int64)
+    for z in range(bsz):
+        for m0 in range(0, m, INT8_TILE):
+            for n0 in range(0, n, INT8_TILE):
+                acc = np.zeros((INT8_TILE, INT8_TILE), np.int64)
+                for kb in range(0, k_pad, INT8_TILE):
+                    for kk in range(kb, kb + INT8_TILE, INT8_MMA_K):
+                        acc += (a64[z, m0:m0 + INT8_TILE, kk:kk + INT8_MMA_K]
+                                @ bt[z, n0:n0 + INT8_TILE, kk:kk + INT8_MMA_K].T)
+                out[z, m0:m0 + INT8_TILE, n0:n0 + INT8_TILE] = acc
+    return out
+
+
+@pytest.mark.parametrize("bsz,m,k,n", [(2, 256, 96, 128), (1, 128, 160, 256)])
+def test_int8_tile_gemm_emulation_is_exact(bsz, m, k, n):
+    """The emulated tile GEMM (a ragged last K step at K = 96 and 160)
+    equals ``probe_matmul_plain`` and the JAX ``_mm_kernel`` in interpret
+    mode exactly; the extremes (-128 everywhere) sum to K·2**14."""
+    rng = np.random.RandomState(6)
+    a = rng.randint(-128, 128, (bsz, m, k)).astype(np.int8)
+    b = rng.randint(-128, 128, (bsz, k, n)).astype(np.int8)
+    got = _emulate_int8_gemm(a, b)
+    plain = probe_matmul_plain(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(got, plain.numpy().astype(np.int64))
+    want = pl.pallas_call(
+        functools.partial(_mm_kernel, acc_dtype=jnp.int32), grid=(bsz, n // INT8_TILE),
+        in_specs=[pl.BlockSpec((1, m, k), lambda i, j: (i, 0, 0)),
+                  pl.BlockSpec((1, k, INT8_TILE), lambda i, j: (i, 0, j))],
+        out_specs=pl.BlockSpec((1, m, INT8_TILE), lambda i, j: (i, 0, j)),
+        out_shape=jax.ShapeDtypeStruct((bsz, m, n), jnp.int32), interpret=True,
+    )(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_array_equal(got, np.asarray(want).astype(np.int64))
+    a[:] = -128
+    b[:] = -128
+    assert (_emulate_int8_gemm(a, b) == k * 2**14).all()
+
+
+@pytest.mark.parametrize("batch,m,k,n,why", [
+    (32, 1536, 512, 2048, None),   # the probe's shape
+    (3, 256, 96, 384, None),       # a ragged last K step of 128
+    (1, 128, 32, 128, None),       # one tile, one product of K = 32
+    (65535, 128, 32, 128, None),   # the transpose pass's grid cap
+    (2, 192, 64, 128, "multiples of 128"),
+    (2, 128, 64, 200, "multiples of 128"),
+    (2, 128, 80, 128, "of 32"),
+    (65536, 128, 32, 128, "batch"),
+    (1, 0, 32, 128, "empty"),
+])
+def test_int8_launch_cases(batch, m, k, n, why):
+    """What the int8 kernel takes: M and N multiples of its 128×128 tile, K
+    of the transpose pass's 32, at most 65535 batch entries (the pass's
+    grid z); anything else is named by ``launch_error`` and raised."""
+    got = launch_error(torch.int8, batch, m, k, n)
     if why is None:
         assert got is None
     else:
