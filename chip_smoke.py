@@ -94,14 +94,35 @@ line per phase, and exits non-zero at the first failure:
     module under a bf16 autocast, the JAX pipeline's route), the three top1
     cases (routed, clean, dropped), the step's times and drop rate with each
     image routed by its own degradation, and one expert's module and fused
-    routes against the f32 module.
+    routes against the f32 module;
+25. classifier training on the card: 24 procedural PNGs of odd sizes
+    letterboxed by ``datasets_generation.generate_classifier`` (on the card),
+    then ``classification.train --dataset_root … --no_pretrained`` for one
+    epoch at B=32·256x384 through all four stages; then ``--synthetic`` at
+    ``CLF_SYNTH``'s scale for each of ``CLF_SEEDS``, each gated on
+    tests/test_classifier_quality.py's floors (val F1-micro ≥ 0.35 with tuned
+    thresholds, test ≥ 0.30, severity MAE ≤ 0.30);
+26. times: the classifier's f32 train step at B=32·256x384 (20 steps after
+    warm-up, CUDA events), its eval step, and the synthetic degrade stage of
+    one template batch; ``torch.profiler`` over three train steps (busy
+    share, convolutions and GEMMs against the rest, the costliest kernels);
+27. the trained head (phase 25, first seed) in the routed server: the CLI
+    ``run_pipeline`` on phase 24's 64 PNGs and experts; top-1 route accuracy
+    against each PNG's degradation and the top1 drop rate, reported, not
+    gated (no pretrained backbone);
+28. a directory config: ``datasets_generation.generate_paired`` writes noise
+    pairs of 64 procedural PNGs on the card, then ``run.main`` ``-p train``
+    (one epoch of ``config/noise.json`` with its roots rewritten, bf16, fused
+    DenseBlocks) and ``-p test``, with the growth-train (#4–#7) and DenseBlock
+    (#2) launches counted; train and test step img/s.
 
 Phases 5, 12-14, 17 and 24 use CDANs whose BatchNorm statistics keep the whole path
 live (``live_cdan``): with ``init_cdan``'s statistics the decoder's ReLUs
 pass nothing but the global residual.
 
-Phases 19 and 21 run with ``cudnn.allow_tf32`` True and ``matmul.allow_tf32``
-False (PyTorch's defaults) and turn both off again after them.
+Phases 19, 21, 25, 26 and 28 run with ``cudnn.allow_tf32`` True and
+``matmul.allow_tf32`` False (PyTorch's defaults, as the CLIs leave them) and
+turn both off again after them.
 
 The last three lines are the ``nvidia-smi`` name/power-limit line, a JSON
 object with one entry per kernel, and ``{"ok": true, "device": {...}}``.
@@ -145,6 +166,13 @@ PROBE_ITERS = 20  # timed calls of each route in the probe scripts (phase 23)
 # 40 leaves a 64-pixel box wholly past P) and a batch above the 65535 grid cap
 RAGGED_PRODUCTS = ((3, 1000), (5, 40), (65537, 8))
 PIPE_IMAGES, PIPE_BATCH = 64, 32  # the routed pipeline's directory and batch (phase 24)
+CLF_CLEAN, CLF_BATCH = 24, 32  # phase 25's clean PNGs and its classifier batch (256x384)
+# phase 25's --synthetic runs: the scale that cleared tests/test_classifier_quality.py's
+# floors on each of the three seeds on the card (PERF.md section 4, the classifier shape)
+CLF_SYNTH = {"images": 96, "variants": 2, "epochs": 6, "batch": 32, "hw": EVAL_HW}
+CLF_SEEDS = (42, 43, 44)
+CLF_FLOORS = {"val_f1_micro": 0.35, "test_f1_micro": 0.30, "sev_mae": 0.30}
+DIR_IMAGES = 64  # phase 28's clean PNGs: 54 train and 10 test pairs
 # (layer, c_in, c_out, (H, W)) of the CM forward's 3x3 convs at B=128·256².
 CM_CONVS = [("conv2", 64, 128, (128, 128)), ("conv3", 128, 256, (64, 64)),
             ("conv4", 256, 512, (32, 32)), ("de1", 512, 256, (32, 32)),
@@ -1786,6 +1814,7 @@ def phase_pipeline(torch, smi):
             f"({t['pipeline_img_s']:.1f} img/s)")
         records[mode] = rec
     records["routes"] = pipeline_routes(torch, art, xs)
+    records["art"] = art
     return records
 
 
@@ -1819,6 +1848,305 @@ def pipeline_routes(torch, art, xs):
                 f"{out[name]['mean_abs']:.3e} PSNR {out[name]['psnr_db']:.2f} dB")
             require(bool(torch.isfinite(d).all()), f"route {name} finite")
     return out
+
+
+def _clean_pngs(folder: Path, n: int, seed: int):
+    """``n`` procedural clean PNGs of odd sizes, some above 256x384 and some
+    below it, so the letterbox both shrinks and enlarges."""
+    from PIL import Image
+
+    from multi_degradation_image_enhancement_tpu_torch.data.synthetic import _procedural_clean
+
+    folder.mkdir(parents=True)
+    for i in range(n):
+        h, w = 181 + (97 * i) % 240, 263 + (151 * i) % 330
+        Image.fromarray(_procedural_clean(1, h, w, seed=seed + i)[0]).save(folder / f"c{i:03d}.png")
+
+
+def _train_classifier(torch, argv) -> tuple:
+    """``classification.train.main(argv)`` with its console output kept out of
+    this script's; returns (summary, thresholds report, seconds)."""
+    import io
+
+    from multi_degradation_image_enhancement_tpu_torch.classification import train
+
+    run_dir = Path(argv[argv.index("--run_dir") + 1])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for name in ("training.log", "history.json", "best_model.pt", "best_model.pt.json",
+                 "thresholds_val.json", "per_class_f1_val.json", "per_class_f1_test.json",
+                 "summary.json"):
+        require((run_dir / name).is_file(), f"classifier run wrote {name}")
+    require((run_dir / "diagnostics" / "test" / "ap_pr_summary.json").is_file(), "diagnostics")
+    report = json.loads((run_dir / "thresholds_val.json").read_text())
+    require(all(math.isfinite(v) for v in summary["test"].values()), "test metrics finite")
+    require(summary["backend"] == "cuda", "the classifier trained on the card")
+    return summary, report, seconds
+
+
+def phase_classifier(torch, smi):
+    """Phase 25: generate a classifier dataset on the card and train on it
+    (one epoch, B=32·256x384, no pretrained backbone), then the synthetic
+    trainer at ``CLF_SYNTH``'s scale for each seed, gated on the floors."""
+    import io
+    import shutil
+
+    from multi_degradation_image_enhancement_tpu_torch.classification.data import read_jsonl
+    from multi_degradation_image_enhancement_tpu_torch.datasets_generation import (
+        generate_classifier,
+    )
+
+    work = Path("build") / "chip_smoke_classifier"
+    shutil.rmtree(work, ignore_errors=True)
+    _clean_pngs(work / "clean", CLF_CLEAN, 500)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        generate_classifier.main(["--clean-dir", str(work / "clean"), "--out", str(work / "dataset")])
+    gen_s = time.perf_counter() - t0
+    split = json.loads(next((work / "dataset" / "meta").glob("split_*.json")).read_text())
+    rows = {k: read_jsonl(str(work / "dataset" / k / "labels.jsonl")) for k in split}
+    from PIL import Image
+
+    sizes = {Image.open(work / "dataset" / r["file"]).size for v in rows.values() for r in v}
+    say("classifier", f"generate_classifier: {CLF_CLEAN} PNGs -> "
+        f"{ {k: len(v) for k, v in rows.items()} } samples in {gen_s:.2f} s, sizes {sizes}")
+    require(all(len(rows[k]) == 5 * len(split[k]) for k in split), "5 variants per clean image")
+    require(sizes == {(EVAL_HW[1], EVAL_HW[0])}, "every sample letterboxed to 256x384")
+
+    summary, report, secs = _train_classifier(torch, [
+        "--dataset_root", str(work / "dataset"), "--no_pretrained", "--epochs", "1",
+        "--batch_size", str(CLF_BATCH), "--run_dir", str(work / "run_dataset")])
+    say("classifier", f"--dataset_root, 1 epoch B={CLF_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} f32, all four "
+        f"stages in {secs:.1f} s: val F1-micro (tuned) {report['val_f1_micro']:.4f}, test "
+        f"{summary['test']}")
+
+    cfg = CLF_SYNTH
+    results = {}
+    for seed in CLF_SEEDS:
+        run_dir = work / f"run_synthetic_{seed}"
+        summary, report, secs = _train_classifier(torch, [
+            "--synthetic", "--no_pretrained", "--seed", str(seed),
+            "--synthetic_images", str(cfg["images"]), "--synthetic_variants", str(cfg["variants"]),
+            "--epochs", str(cfg["epochs"]), "--batch_size", str(cfg["batch"]),
+            "--input_hw", str(cfg["hw"][0]), str(cfg["hw"][1]), "--th_steps", "7",
+            "--bn_recal_passes", "2", "--run_dir", str(run_dir)])
+        got = {"val_f1_micro": report["val_f1_micro"], "test_f1_micro": summary["test"]["f1_micro"],
+               "sev_mae": summary["test"]["sev_mae"]}
+        results[seed] = {"run_dir": run_dir, "seconds": secs, **got}
+        say("classifier", f"--synthetic seed {seed}, {cfg['images']} images x {cfg['variants']} "
+            f"variants, {cfg['epochs']} epochs B={cfg['batch']}x{cfg['hw'][0]}x{cfg['hw'][1]} in "
+            f"{secs:.1f} s: val F1-micro (tuned) {got['val_f1_micro']:.4f} (floor 0.35), test "
+            f"F1-micro {got['test_f1_micro']:.4f} (floor 0.30), sev MAE {got['sev_mae']:.4f} "
+            f"(ceiling 0.30), best epoch {summary['best_epoch']}")
+    for seed, r in results.items():
+        require(r["val_f1_micro"] >= CLF_FLOORS["val_f1_micro"]
+                and r["test_f1_micro"] >= CLF_FLOORS["test_f1_micro"]
+                and r["sev_mae"] <= CLF_FLOORS["sev_mae"], f"seed {seed} clears the quality floors")
+    return results
+
+
+def classifier_times(torch, smi):
+    """Phase 26: the f32 train step at B=32·256x384 (20 steps after 3 warm-up,
+    CUDA events, the synthetic loader's first full batch), the eval step, and
+    the synthetic degrade stage of that template batch."""
+    from multi_degradation_image_enhancement_tpu_torch.classification import train
+    from multi_degradation_image_enhancement_tpu_torch.classification.model import init_classifier
+    from multi_degradation_image_enhancement_tpu_torch.classification.synthetic import (
+        SyntheticClassifierDataset, SyntheticClassifierLoader, degrade_template,
+    )
+
+    ds = SyntheticClassifierDataset(n_images=4 * CLF_BATCH, variants_per_image=1, input_hw=EVAL_HW)
+    loader = SyntheticClassifierLoader(ds, CLF_BATCH, shuffle=True, augment=True, device="cuda")
+    idxs = next(b for b in loader._batches() if len(b) == CLF_BATCH)
+    template, imgs, ys, ss, _ = loader._host_batch(idxs)
+    clean = torch.from_numpy(imgs).cuda().float()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    degrade_ms = cuda_ms(lambda: degrade_template(clean, template, ys, ss, ds.classes, gen), 20, 3)
+    chain = [d for d in ds.classes if (ys[:, ds.classes.index(d)] > 0.5).any()]
+    x, y, s, _ = next(iter(loader))
+    model = init_classifier(torch.Generator().manual_seed(42), len(ds.classes),
+                            pretrained_backbone=False).cuda()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    pw = torch.ones(len(ds.classes), device="cuda")
+    step_ms = cuda_ms(lambda: train.train_step(model, opt, x, y, s, pw), 20, 3)
+    eval_ms = cuda_ms(lambda: train.eval_step(model, x, y, s, pw), 20, 3)
+    profile_classifier(torch, smi, lambda: train.train_step(model, opt, x, y, s, pw))
+    say("times", f"[{smi}] classifier train step B={CLF_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} f32 "
+        f"({train.tf32_state()}): {step_ms:.3f} ms/step, {CLF_BATCH / step_ms * 1e3:.1f} img/s; "
+        f"eval step {eval_ms:.3f} ms ({CLF_BATCH / eval_ms * 1e3:.1f} img/s); synthetic degrade "
+        f"stage of one template batch (template {template}, {len(chain)} degradations applied: "
+        f"{chain}) {degrade_ms:.3f} ms")
+    return {"train_ms": step_ms, "eval_ms": eval_ms, "degrade_ms": degrade_ms}
+
+
+GEMM_KEYS = ("gemm", "conv", "xmma", "cutlass", "cudnn", "fprop", "dgrad", "wgrad")
+
+
+def profile_classifier(torch, smi, step, steps: int = 3):
+    """``torch.profiler`` over ``steps`` classifier train steps after two
+    warm-up ones: device time a step, busy share, the share of the
+    convolution and GEMM kernels (names holding one of ``GEMM_KEYS``), and
+    the eight kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    total_ms = sum(device_us(e) for e in kernels) / 1e3 / steps
+    require(total_ms > 0, "the profiler saw device time")
+    gemm_ms = sum(device_us(e) for e in kernels
+                  if any(k in e.key.lower() for k in GEMM_KEYS)) / 1e3 / steps
+    launches = sum(e.count for e in kernels) // steps
+    say("profile", f"[{smi}] classifier train step under torch.profiler: {total_ms:.3f} ms of "
+        f"kernels a step ({launches} launches), {wall_ms:.3f} ms wall, busy share "
+        f"{total_ms / wall_ms:.3f}; convolutions and GEMMs {gemm_ms:.3f} ms (share "
+        f"{gemm_ms / total_ms:.3f}), the rest {total_ms - gemm_ms:.3f} ms")
+    for e in sorted(kernels, key=lambda e: -device_us(e))[:8]:
+        say("profile", f"  {device_us(e) / 1e3 / steps:8.3f} ms/step {e.count // steps:4d}x "
+            f"{e.key[:110]}")
+
+
+def phase_trained_head(torch, smi, art, clf_run: Path):
+    """Phase 27: the routed server (CLI ``run_pipeline``, top1, B=32) with
+    phase 25's trained head on phase 24's 64 PNGs: top-1 accuracy of the
+    class head against each PNG's degradation, and the drop rate; reported,
+    not gated."""
+    import io
+    import shutil
+
+    from multi_degradation_image_enhancement_tpu_torch import run_pipeline
+    from multi_degradation_image_enhancement_tpu_torch.pipeline import CLEAN, DROPPED
+
+    out = Path("build") / "chip_smoke_pipeline" / "trained_head"
+    shutil.rmtree(out, ignore_errors=True)
+    clf = clf_run / "best_model.pt"
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        run_pipeline.main(["--images", str(art["images"]), "--out", str(out), "--classifier",
+                           str(clf), "--weights-dir", str(art["weights"]), "--batch", str(PIPE_BATCH),
+                           "--input-hw", str(EVAL_HW[0]), str(EVAL_HW[1]), "--save-probs"])
+    require(f"thresholds: {clf_run / 'thresholds_val.json'}" in log.getvalue(),
+            "run_pipeline took the trained run's thresholds_val.json")
+    pipe = run_pipeline.build_full_pipeline(str(clf), str(art["weights"]), "top1", "fixed", "cuda")
+    names = pipe.router.expert_names
+    rows = [json.loads(line) for line in (out / "probs.jsonl").read_text().splitlines()]
+    require([r["file"] for r in rows] == art["files"], "one probs row per PNG")
+    probs = torch.tensor([[r["probs"][n] for n in names] for r in rows])
+    top1 = [names[i] for i in probs.argmax(dim=1).tolist()]
+    acc = sum(a == b for a, b in zip(top1, art["labels"])) / len(rows)
+    routes = pipe.router.route(probs.cuda(), pipe.thresholds).cpu()
+    drop = float((routes == DROPPED).float().mean())
+    clean = float((routes == CLEAN).float().mean())
+    require(len(list(out.glob("*.png"))) == len(rows), "one restored PNG per image")
+    say("pipeline", f"[{smi}] trained head ({clf}, no pretrained backbone) in run_pipeline top1 "
+        f"over {len(rows)} PNGs: top-1 route accuracy {acc:.4f} against the PNGs' degradations "
+        f"(chance {1 / len(names):.4f}), drop rate {drop:.4f}, clean passthrough {clean:.4f}")
+    return {"accuracy": acc, "drop_rate": drop, "clean_rate": clean}
+
+
+def phase_dir_config(torch, smi):
+    """Phase 28: noise pairs from ``generate_paired`` on the card, then
+    ``run.main`` ``-p train`` (one epoch of config/noise.json, roots
+    rewritten) and ``-p test``, every launch counted; train and test step
+    img/s by CUDA events."""
+    import io
+    import shutil
+
+    from multi_degradation_image_enhancement_tpu_torch import run
+    from multi_degradation_image_enhancement_tpu_torch.datasets_generation import generate_paired
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        LAUNCHES_PER_BLOCK, dense_block,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer_bwd, growth_layer_fwd,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
+
+    work = Path("build") / "chip_smoke_dir"
+    shutil.rmtree(work, ignore_errors=True)
+    _clean_pngs(work / "clean", DIR_IMAGES, 700)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        generate_paired.main(["--clean-dir", str(work / "clean"), "--out", str(work / "data"),
+                              "--generate", "noise"])
+    gen_s = time.perf_counter() - t0
+    n = {k: len(list((work / "data" / "noise" / k / "degraded").glob("*.png")))
+         for k in ("train", "test")}
+    say("dir_config", f"generate_paired noise: {DIR_IMAGES} PNGs -> {n} pairs at "
+        f"{EVAL_HW[0]}x{EVAL_HW[1]} in {gen_s:.2f} s")
+    require(sum(n.values()) == DIR_IMAGES, "every clean image paired")
+
+    cfg = read_config("noise")
+    cfg["train"].update(n_epoch=1, model_path=str(work / "weights"))
+    cfg["test"].update(model_path=str(work / "weights"), output_images_path=str(work / "outputs"))
+    for split in ("train", "test"):
+        args = cfg[split]["dataset"]["args"]
+        args["input_root"] = str(work / "data" / "noise" / split / "degraded")
+        args["target_root"] = str(work / "data" / "noise" / split / "clean")
+    cfg["save_outputs"]["output_dir"] = str(work / "outputs")
+    cfg["logging"]["root_dir"] = str(work / "runs")
+    (work / "config.json").write_text(json.dumps(cfg))
+    bsz = cfg["train"]["dataloader"]["args"]["batch_size"]
+    steps, passes = -(-n["train"] // bsz), cfg["train"]["bn_recalibration"]["passes"]
+
+    growth_layer_fwd.launches = growth_layer_bwd.launches = dense_block.launches = 0
+    t0 = time.perf_counter()
+    engine = run.main(load_config(str(work / "config.json"), phase="train"))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = {"growth_train_fwd": growth_layer_fwd.launches,
+                      "growth_train_bwd": growth_layer_bwd.launches,
+                      "dense_block": dense_block.launches}
+    (csv_path,) = (work / "runs").glob("noise/*/train.csv")
+    header, row = csv_path.read_text().splitlines()
+    loss = float(dict(zip(header.split(","), row.split(",")))["loss_total"])
+    inputs, targets, mask = next(iter(engine.dataloader))
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    step_ms = cuda_ms(lambda: engine._train_step(engine.state, inputs, targets, gen, mask), 10, 3)
+
+    dense_block.launches = 0
+    t0 = time.perf_counter()
+    tester = run.main(load_config(str(work / "config.json"), phase="test"))
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = dense_block.launches
+    (csv_path,) = (work / "runs").glob("noise/*/test.csv")
+    header, row = csv_path.read_text().splitlines()
+    scores = {k: float(v) for k, v in zip(header.split(","), row.split(","))
+              if k.startswith(("loss_", "metric_"))}
+    eval_step = tester._build_eval_step(tester._load_for_eval())
+    t_in, t_tgt, t_mask = next(iter(tester.dataloader))
+    eval_ms = cuda_ms(lambda: eval_step(t_in, t_tgt, t_mask), 10, 3)
+    test_batches = -(-n["test"] // cfg["test"]["dataloader"]["args"]["batch_size"])
+    pngs = len(list((work / "outputs").glob("raw_*.png")))
+    say("dir_config", f"[{smi}] noise.json -p train: {steps} steps B={bsz}x{EVAL_HW[0]}x{EVAL_HW[1]} "
+        f"{engine.precision} + {passes} recalibration passes in {train_s:.1f} s, epoch loss "
+        f"{loss:.5f}, launches {train_launches}; train step {step_ms:.3f} ms "
+        f"({bsz / step_ms * 1e3:.1f} img/s)")
+    say("dir_config", f"[{smi}] noise.json -p test: {n['test']} pairs in {test_s:.2f} s, {pngs} PNGs, "
+        f"scores {scores}, dense_block launches {test_launches}; eval step {eval_ms:.3f} ms per "
+        f"B={bsz} batch ({bsz / eval_ms * 1e3:.1f} img/s)")
+    require(math.isfinite(loss) and engine.network.fused_dense, "finite loss, fused DenseBlocks")
+    require(train_launches["growth_train_fwd"] == 16 * steps * (1 + passes)
+            and train_launches["growth_train_bwd"] == 16 * steps, "growth-train launches (#4-#7)")
+    require(train_launches["dense_block"] == 0, "training runs no inference DenseBlock")
+    require(test_launches == 4 * LAUNCHES_PER_BLOCK * test_batches, "DenseBlock launches (#2)")
+    require(pngs == n["test"] and all(math.isfinite(v) for v in scores.values()), "test outputs")
+    return {"train_launches": train_launches, "test_launches": test_launches,
+            "train_ms": step_ms, "eval_ms": eval_ms}
 
 
 def main() -> int:
@@ -1865,7 +2193,15 @@ def main() -> int:
         profile_step(torch, smi, records["jpeg_synthetic"]["engine"])
     conv_lib_ms = library_conv_ms(torch, live)
     probes = phase_probes(torch, smi)
-    phase_pipeline(torch, smi)
+    pipe_records = phase_pipeline(torch, smi)
+    with tf32_defaults(torch) as flags:  # the classifier trainer as a user runs it
+        say("classifier", f"phases 25 and 26 with {flags}")
+        clf_runs = phase_classifier(torch, smi)
+        classifier_times(torch, smi)
+    phase_trained_head(torch, smi, pipe_records["art"], clf_runs[CLF_SEEDS[0]]["run_dir"])
+    with tf32_defaults(torch) as flags:  # the directory config's CLI as a user runs it
+        say("dir_config", f"phase 28 with {flags}")
+        phase_dir_config(torch, smi)
 
     src = f"{PKG}/csrc"
     ref = "multi_degradation_image_enhancement_tpu/ops/pallas"

@@ -81,6 +81,48 @@ def _op_rot90(p: float) -> Op:
     return sample, apply
 
 
+def rotation_coords(angle: torch.Tensor, h: int, w: int):
+    """Source coordinates ``(sy, sx)`` [B, H, W] of a rotation by ``angle``
+    degrees about the centre ((H−1)/2, (W−1)/2), in the JAX op's f32 steps
+    and order (``transforms.py:298-319``)."""
+    theta = (-angle.to(torch.float32) * torch.pi / 180.0)[:, None, None]
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy = torch.arange(h, dtype=torch.float32, device=angle.device)[None, :, None]
+    xx = torch.arange(w, dtype=torch.float32, device=angle.device)[None, None, :]
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    return cy + (yy - cy) * cos - (xx - cx) * sin, cx + (yy - cy) * sin + (xx - cx) * cos
+
+
+def sample_bilinear_zero(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """``map_coordinates(order=1, cval=0)`` of each channel of ``[B,H,W,C]``
+    at per-sample coordinates [B, H, W]: the four taps in JAX's order, each
+    weighing in only where it lies inside the image."""
+    b, h, w, c = x.shape
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+    wy1, wx1 = sy - y0, sx - x0
+    flat = x.reshape(b, h * w, c)
+    out = torch.zeros_like(x)
+    for dy, wy in ((0, 1.0 - wy1), (1, wy1)):
+        for dx, wx in ((0, 1.0 - wx1), (1, wx1)):
+            yi, xi = (y0 + dy).long(), (x0 + dx).long()
+            valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, h * w, 1)
+            tap = torch.gather(flat, 1, idx.expand(b, h * w, c)).reshape(b, h, w, c)
+            out = out + (wy * wx * valid)[..., None] * tap
+    return out
+
+
+def _op_rotation(degrees: float) -> Op:
+    """RandomRotation: an angle uniform in ±``degrees`` per sample, bilinear,
+    zero outside (torchvision's op, as the JAX package computes it)."""
+
+    def apply(x, angle):
+        sy, sx = rotation_coords(angle.to(x.device), x.shape[1], x.shape[2])
+        return sample_bilinear_zero(x, sy, sx)
+
+    return (lambda s, g, d: _uniform(s, g, d, -degrees, degrees)), apply
+
+
 def _op_resize(height: int, width: int) -> Op:
     def apply(x, _):
         if x.shape[1] == height and x.shape[2] == width:
@@ -229,6 +271,11 @@ class DeviceTransform:
     def __init__(self, ops: List[Op], target_hw: Optional[Tuple[int, int]]):
         self.ops = ops
         self.target_hw = target_hw  # size the loader should deliver batches at
+
+    def __call__(self, images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        for sample, apply in self.ops:
+            images = apply(images, sample(images.shape, generator, images.device))
+        return images
 
     def apply_paired(self, inp: torch.Tensor, tgt: torch.Tensor, generator: torch.Generator):
         """The same parameters on input and target (albumentations

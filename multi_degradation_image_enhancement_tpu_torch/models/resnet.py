@@ -9,8 +9,10 @@ takes NHWC images, as the JAX module does, and returns the ``[B, 512]``
 global-mean feature.  Semantics kept from the JAX module: conv1 7×7/2 pad 3
 (:54-55), max-pool 3/2 pad 1 with −inf padding (:59), the 1×1/2 downsample
 when the stride is not 1 or the width changes (:39-43), the global mean
-(:68).  BatchNorm is ``torch.nn.BatchNorm2d`` (eps 1e-5, Flax's default);
-only the inference forward is ported.
+(:68).  BatchNorm is the port's ``models.norm.BatchNorm2d`` (torch's names,
+eps 1e-5 and momentum 0.1 = Flax's 0.9): Flax's training semantics (biased
+running variance) in train mode and in ``stats_refresh`` mode, torch's in
+eval mode.
 """
 
 from __future__ import annotations
@@ -22,18 +24,20 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from multi_degradation_image_enhancement_tpu_torch.models.norm import BatchNorm2d
+
 
 class BasicBlock(nn.Module):
     def __init__(self, in_features: int, features: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_features, features, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(features)
+        self.bn1 = BatchNorm2d(features)
         self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(features)
+        self.bn2 = BatchNorm2d(features)
         self.downsample: Optional[nn.Sequential] = None
         if stride != 1 or in_features != features:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_features, features, 1, stride, bias=False), nn.BatchNorm2d(features))
+                nn.Conv2d(in_features, features, 1, stride, bias=False), BatchNorm2d(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
@@ -47,7 +51,7 @@ class ResNet18Features(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         widths = [(64, 1), (128, 2), (256, 2), (512, 2)]
         c_in = 64
         for li, (features, stride) in enumerate(widths, start=1):

@@ -133,7 +133,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
     if args.expert_mesh > 1:
         raise NotImplementedError("--expert-mesh (expert-parallel serving) is not ported to "
-                                  "PyTorch yet: ROADMAP.md queue 1 item 7 (DDP and meshes)")
+                                  "PyTorch yet: ROADMAP.md queue 1 item 5 (DDP and meshes)")
 
     pipeline = build_full_pipeline(args.classifier, args.weights_dir, args.mode, args.ordering,
                                    args.device)

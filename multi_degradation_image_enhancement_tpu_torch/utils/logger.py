@@ -5,8 +5,9 @@ same artifacts and row schemas).
 A run directory ``<root_dir>/<name>/<YYYY-MM-DD_HH-MM-SS>`` holds
 ``train.csv``/``train.jsonl``, ``test.csv``/``test.jsonl``, an incrementally
 rewritten ``summary.json`` and a copy of the config.  CSV headers are frozen
-from the first row's keys; rows are flushed at once.  Loss-curve plots are
-not ported (ROADMAP.md).
+from the first row's keys; rows are flushed at once.  The JAX logger's
+``generate_plots``, which its engine never calls, is not ported;
+``utils.plotting.plot_losses_from_csv`` draws the curves of a ``train.csv``.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 of ``multi_degradation_image_enhancement_tpu/utils/registry.py``).
 
 The shipped configs name the reference's modules (``["models.cdan",
-"CDAN"]``); each name that the train and test phases of the synthetic
-configs use maps to the port's class.  Any other name raises and names
+"CDAN"]``); each name that the train and test phases of the shipped
+configs use (synthetic and directory-backed) maps to the port's class, in
+the short and in the long form.  Any other name raises and names
 ROADMAP.md.
 """
 
@@ -24,6 +25,16 @@ def _model():
     return Model
 
 
+def _paired():
+    from multi_degradation_image_enhancement_tpu_torch.data.dataset import PairedDataset
+    return PairedDataset
+
+
+def _unpaired():
+    from multi_degradation_image_enhancement_tpu_torch.data.dataset import UnpairedDataset
+    return UnpairedDataset
+
+
 def _synthetic():
     from multi_degradation_image_enhancement_tpu_torch.data.synthetic import SyntheticPairedDataset
     return SyntheticPairedDataset
@@ -36,6 +47,10 @@ _REGISTRY: Dict[Tuple[str, str], Callable[[], Any]] = {
     (f"{_PKG}.engine.model", "Model"): _model,
     ("data.synthetic", "SyntheticPairedDataset"): _synthetic,
     (f"{_PKG}.data.synthetic", "SyntheticPairedDataset"): _synthetic,
+    ("data.dataset", "PairedDataset"): _paired,
+    (f"{_PKG}.data.dataset", "PairedDataset"): _paired,
+    ("data.dataset", "UnpairedDataset"): _unpaired,
+    (f"{_PKG}.data.dataset", "UnpairedDataset"): _unpaired,
 }
 
 

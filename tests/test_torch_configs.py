@@ -111,10 +111,29 @@ def test_pipelines_follow_the_engine_device(tmp_path):
 
 
 def test_directory_backed_configs_still_raise(tmp_path):
+    """A directory config (``data.dataset.PairedDataset``) resolves to the
+    port's dataset: with its shipped roots absent it raises for the missing
+    directory, as the JAX package does; with the roots present (rewritten
+    into ``tmp_path``) the session builds on them."""
+    from PIL import Image
+
+    from multi_degradation_image_enhancement_tpu_torch.data.dataset import PairedDataset
+
     cfg = json.loads(json.dumps(load_config(str(CONFIG_DIR / "blur.json"))))
     cfg["train"]["device"] = "cpu"
     cfg["logging"]["root_dir"] = str(tmp_path / "runs")
     path = tmp_path / "blur.json"
     path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError, match="blur/train/degraded"):
         run.build_session(load_config(str(path), phase="train"))
+    args = cfg["train"]["dataset"]["args"]
+    for key, sub in (("input_root", "degraded"), ("target_root", "clean")):
+        args[key] = str(tmp_path / "blur" / sub)
+        (tmp_path / "blur" / sub).mkdir(parents=True)
+        for i in range(3):
+            Image.new("RGB", (48, 32), (40 * i, 0, 0)).save(tmp_path / "blur" / sub / f"{i}.png")
+    path.write_text(json.dumps(cfg))
+    logger, engine = run.build_session(load_config(str(path), phase="train"))
+    logger.close()
+    assert isinstance(engine.dataloader.dataset, PairedDataset)
+    assert len(engine.dataloader.dataset) == 3

@@ -400,6 +400,6 @@ def test_u8_output_truncates():
 
 
 def test_expert_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         run_pipeline.main(["--images", str(tmp_path), "--out", str(tmp_path), "--classifier",
                            "c.pt", "--weights-dir", str(tmp_path), "--expert-mesh", "3"])

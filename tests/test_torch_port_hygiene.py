@@ -1,6 +1,6 @@
 """PyTorch port hygiene: it imports and runs a CPU serving step, the CPU
-training and test CLI and the CPU serving pipeline CLI with JAX blocked,
-refuses CUDA without a card, counts no launch on the plain path, refuses to
+training and test CLI, the CPU serving pipeline CLI, the classifier trainer
+and the two dataset generators with JAX blocked, refuses CUDA without a card, counts no launch on the plain path, refuses to
 run its inference kernels under autograd, and its C entry points match the
 CUDA sources."""
 
@@ -41,7 +41,17 @@ from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_transpose impo
     xt_dot_m,
 )
 from tests.torch_pipeline_cli import cli_args, write_tiny_pipeline
-from tests.torch_train_cli import check_tiny_run, check_tiny_test_run, write_tiny_config
+from multi_degradation_image_enhancement_tpu_torch.classification import train as classifier_train
+from multi_degradation_image_enhancement_tpu_torch.datasets_generation import (
+    generate_classifier,
+    generate_paired,
+)
+from tests.torch_train_cli import (
+    check_tiny_run,
+    check_tiny_test_run,
+    write_clean_pngs,
+    write_tiny_config,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG_DIR = ROOT / "multi_degradation_image_enhancement_tpu_torch"
@@ -69,6 +79,12 @@ for path in job["configs"]:
     run.main(load_config(path, phase="test"))
 for argv in job["pipeline"]:
     run_pipeline.main(argv)
+from multi_degradation_image_enhancement_tpu_torch.classification import train
+from multi_degradation_image_enhancement_tpu_torch.datasets_generation import (
+    generate_classifier, generate_paired)
+generate_classifier.main(job["generate_classifier"])
+generate_paired.main(job["generate_paired"])
+train.main(job["classifier"])
 print("OK", len(mods))
 """
 
@@ -78,15 +94,27 @@ def test_port_imports_and_runs_with_jax_blocked(tmp_path):
     scores the tiny configs of tests/torch_train_cli.py (noise_synthetic, and
     jpeg_synthetic: the jpeg degradation, the VGG and LPIPS loss terms), and
     the serving pipeline CLI restores a directory in top1 and in
-    severity-ordered sequential mode, all with JAX blocked."""
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    severity-ordered sequential mode, the two dataset generators write their
+    layouts from three PNGs and the classifier trainer runs its four stages
+    on synthetic data, all with JAX blocked."""
+    # One intra-op thread: the runs are tiny, and many threads stall when
+    # other test workers hold the cores.
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     (tmp_path / "jpeg").mkdir()
     configs = [write_tiny_config(tmp_path), write_tiny_config(tmp_path / "jpeg", "jpeg_synthetic")]
     pipe = write_tiny_pipeline(tmp_path / "pipeline")
     outs = [tmp_path / "pipeline" / "top1", tmp_path / "pipeline" / "severity"]
+    write_clean_pngs(tmp_path / "clean", [(30, 50), (40, 40), (36, 52)])
+    gen = ["--clean-dir", str(tmp_path / "clean"), "--target-hw", "32", "48", "--device", "cpu"]
     job = {"configs": list(map(str, configs)),
            "pipeline": [cli_args(pipe, outs[0], "--save-probs"),
-                        cli_args(pipe, outs[1], "--mode", "sequential", "--ordering", "severity")]}
+                        cli_args(pipe, outs[1], "--mode", "sequential", "--ordering", "severity")],
+           "generate_classifier": gen + ["--out", str(tmp_path / "cls"), "--variants-per-image", "2"],
+           "generate_paired": gen + ["--out", str(tmp_path / "paired"), "--generate", "noise",
+                                     "pixelation_easy"],
+           "classifier": ["--synthetic", "--device", "cpu", "--no_pretrained", "--synthetic_images",
+                          "4", "--epochs", "1", "--batch_size", "4", "--input_hw", "32", "48",
+                          "--th_steps", "3", "--run_dir", str(tmp_path / "clf")]}
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN, str(ROOT), json.dumps(job)],
         capture_output=True, text=True, timeout=300, cwd=ROOT, env=env,
@@ -104,6 +132,13 @@ def test_port_imports_and_runs_with_jax_blocked(tmp_path):
     rows = [json.loads(line) for line in (outs[0] / "probs.jsonl").read_text().splitlines()]
     assert [r["file"] for r in rows] == ["im0.png", "im1.png", "im2.png"]
     assert set(rows[0]["probs"]) == {"noise", "blur", "low_light"}  # only the loaded experts
+    assert sum(1 for _ in (tmp_path / "cls").rglob("*.png")) == 6
+    assert all(json.loads(line)["file"].endswith(".png") for split in ("train", "val", "test")
+               for line in (tmp_path / "cls" / split / "labels.jsonl").read_text().splitlines())
+    for item in ("noise", "pixelation_easy"):
+        assert sum(1 for _ in (tmp_path / "paired" / item).rglob("*.png")) == 6
+    for name in ("best_model.pt", "thresholds_val.json", "summary.json"):
+        assert (tmp_path / "clf" / name).is_file(), name
 
 
 def test_no_jax_import_in_port_sources():
@@ -129,6 +164,12 @@ def test_cuda_without_a_card_raises():
                            "--weights-dir", "w"])
     with pytest.raises(RuntimeError, match="CUDA device"):
         exp_int8_reprobe.run()
+    # the classifier trainer and the generators: --device defaults to cuda
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        classifier_train.main(["--synthetic", "--run_dir", "never_written"])
+    for cli in (generate_classifier, generate_paired):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--clean-dir", "d", "--out", "o"])
 
 
 def _launches():

@@ -94,3 +94,42 @@ def check_tiny_test_run(tmp: Path, task: str = "noise_synthetic") -> dict:
     assert summary["test_batches"] == 2 and summary["post_processing_enabled"] == post_on
     assert summary["pretrained_weights"]["lpips_alex.npz"] in ("pretrained", "random_frozen")
     return rows
+
+
+def write_tiny_dir_config(tmp: Path, data_root: Path, task: str = "noise") -> Path:
+    """A directory-backed ``<task>.json`` (``data.dataset.PairedDataset``) on
+    the CPU, fp32, one epoch at batch 2, Resize 32×48, its roots rewritten to
+    ``data_root/<task>/{train,test}/{degraded,clean}`` (the layout of
+    ``datasets_generation.generate_paired``); every output under ``tmp``."""
+    cfg = load_shipped(task)
+    train, test = cfg["train"], cfg["test"]
+    train.update(device="cpu", n_epoch=1, precision="fp32", model_path=str(tmp / "weights"))
+    test.update(device="cpu", model_path=str(tmp / "weights"))
+    for split, block in (("train", train), ("test", test)):
+        args = block["dataset"]["args"]
+        args["input_root"] = str(data_root / task / split / "degraded")
+        args["target_root"] = str(data_root / task / split / "clean")
+        for op in args["transform"]["ops"]:
+            if op["name"] == "Resize":
+                op["args"] = {"height": 32, "width": 48}
+        block["dataloader"]["args"]["batch_size"] = 2
+    cfg["save_outputs"]["output_dir"] = str(tmp / "outputs")
+    cfg["logging"]["root_dir"] = str(tmp / "runs")
+    path = tmp / f"tiny_{task}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def write_clean_pngs(folder: Path, sizes, seed: int = 0) -> list:
+    """Procedural clean PNGs (``data.synthetic._procedural_clean``), one per
+    (H, W) of ``sizes``, as ``img<i>.png``; returns the names."""
+    from PIL import Image
+
+    from multi_degradation_image_enhancement_tpu_torch.data.synthetic import _procedural_clean
+
+    folder.mkdir(parents=True, exist_ok=True)
+    names = []
+    for i, (h, w) in enumerate(sizes):
+        names.append(f"img{i}.png")
+        Image.fromarray(_procedural_clean(1, h, w, seed=seed + i)[0]).save(folder / names[-1])
+    return names
