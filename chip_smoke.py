@@ -114,7 +114,21 @@ line per phase, and exits non-zero at the first failure:
     pairs of 64 procedural PNGs on the card, then ``run.main`` ``-p train``
     (one epoch of ``config/noise.json`` with its roots rewritten, bf16, fused
     DenseBlocks) and ``-p test``, with the growth-train (#4–#7) and DenseBlock
-    (#2) launches counted; train and test step img/s.
+    (#2) launches counted; train and test step img/s;
+29. the remat step: noise_synthetic's fused train step at B=16·256×384 with
+    ``remat`` off and on (same weights, batch and dropout masks, cuDNN
+    deterministic), bf16 and fp32: loss and running statistics bit-equal, the
+    recomputation under the bf16 autocast, 32 growth forwards and 16
+    backwards under remat; the gradients within twice the plain step's own
+    repeat distance (the card's step is not reproducible to 1e-5); each
+    step's peak memory (remat must lower it) and ms (CUDA events);
+30. the rest of training through the CLI: ``run.main`` on noise_synthetic.json
+    cut to 2 epochs of 64 images with ``remat``, a cosine ``lr_schedule``,
+    ``grad_clip`` 1.0, the profiler on epoch 2 and checkpoints every epoch
+    (``state_00N``, ``epoch_00N.pt``, the loss plot, a trace naming both growth
+    kernels), then a 1-epoch run resumed from ``state_001``: step 4 to 8, its
+    learning rates the schedule's at counts 4-7, launches counted around each
+    run.
 
 Phases 5, 12-14, 17 and 24 use CDANs whose BatchNorm statistics keep the whole path
 live (``live_cdan``): with ``init_cdan``'s statistics the decoder's ReLUs
@@ -173,6 +187,7 @@ CLF_SYNTH = {"images": 96, "variants": 2, "epochs": 6, "batch": 32, "hw": EVAL_H
 CLF_SEEDS = (42, 43, 44)
 CLF_FLOORS = {"val_f1_micro": 0.35, "test_f1_micro": 0.30, "sev_mae": 0.30}
 DIR_IMAGES = 64  # phase 28's clean PNGs: 54 train and 10 test pairs
+REMAT_STEPS = 10  # timed steps of each side in phase 29
 # (layer, c_in, c_out, (H, W)) of the CM forward's 3x3 convs at B=128·256².
 CM_CONVS = [("conv2", 64, 128, (128, 128)), ("conv3", 128, 256, (64, 64)),
             ("conv4", 256, 512, (32, 32)), ("de1", 512, 256, (32, 32)),
@@ -2149,6 +2164,249 @@ def phase_dir_config(torch, smi):
             "train_ms": step_ms, "eval_ms": eval_ms}
 
 
+def _remat_step(torch, model, remat: bool, precision: str, batch, masks, record=None):
+    """One ``make_train_step`` on a copy of ``model`` with ``remat``: (loss,
+    grads, buffers, peak bytes, growth launches (fwd, bwd), state, step fn).
+    With ``record``, the output dtype of a conv (``encoder.conv2``) and a
+    linear (``bottleneck`` MLP) is appended to it at every call."""
+    import copy
+
+    from multi_degradation_image_enhancement_tpu_torch.engine.model import make_train_step
+    from multi_degradation_image_enhancement_tpu_torch.engine.state import TrainState
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer_bwd, growth_layer_fwd,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.ops.losses import build_loss_pipeline
+
+    m = copy.deepcopy(model)
+    m.fused_dense, m.remat = True, remat
+    if record is not None:
+        for name, layer in (("conv", m.encoder.conv2.conv), ("linear", m.bottleneck.ChannelGate.mlp[1])):
+            layer.register_forward_hook(lambda mod, args, out, name=name: record.append((name, out.dtype)))
+    state = TrainState.create(m, 1e-3)
+    step = make_train_step(build_loss_pipeline(_loss_config(), "cuda"), precision)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    growth_layer_fwd.launches = growth_layer_bwd.launches = 0
+    loss = step(state, *batch, masks)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = (growth_layer_fwd.launches, growth_layer_bwd.launches)
+    grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+    buffers = {n: b.clone() for n, b in m.named_buffers()}
+    return loss, grads, buffers, peak, launches, state, step
+
+
+def _bn_fed_biases(model) -> set:
+    """Names of the conv biases whose output a train-mode BatchNorm
+    normalises (each ConvBlock's, each growth layer's, the decoder deconvs'):
+    their exact gradient is 0, so what a step computes for them is rounding
+    dust of a cancellation."""
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import ConvBlock, DenseBlock
+
+    names = {f"decoder.conv{i}.bias" for i in range(1, 5)}
+    for name, m in model.named_modules():
+        if isinstance(m, ConvBlock):
+            names.add(f"{name}.conv.bias")
+        elif isinstance(m, DenseBlock):
+            names.update(f"{name}.layers.{i}.2.bias" for i in range(m.num_layers))
+    return names
+
+
+def _grad_distance(got, want, dust):
+    """(worst per-leaf max|got - want| / max|want| over the leaves outside
+    ``dust``, that leaf, the largest |got - want| over ``dust``)."""
+    rel = max(((got[n] - g).abs().max().item() / g.abs().max().item(), n)
+              for n, g in want.items() if n not in dust)
+    return rel[0], rel[1], max((got[n] - want[n]).abs().max().item() for n in dust)
+
+
+def phase_remat(torch, smi):
+    """Phase 29: noise_synthetic's fused train step at B=16·256x384 without
+    and with ``remat`` (the engine's init, the same batch and dropout masks),
+    cuDNN deterministic, in bf16 (the recipe's precision) and in fp32, the
+    plain step run twice for the card's own repeat distance.
+
+    Loss and every buffer (running statistics) bit-equal; 16 growth forwards
+    and 16 backwards plain, 32 and 16 under remat; a conv and a linear inside
+    remat blocks return bf16 at every call, the recomputation's included
+    (the autocast is restored for it); the gradients no farther from the
+    plain step's than twice the plain step's from its own repeat, per leaf
+    relative to its largest value and, for the 24 conv biases feeding a
+    BatchNorm (``_bn_fed_biases``: zero in exact arithmetic), absolutely.
+    The step is not reproducible on the card (the bilinear upsample's
+    backward adds with atomics, and the growth kernels round to bf16
+    downstream of it: ~1e-2 of some leaves in bf16, ~7e-4 in fp32), so a
+    fixed 1e-5 cannot be met by the plain step against itself; the CPU tests
+    (tests/test_torch_remat.py) hold remat bit-equal where the step is
+    deterministic.  Then the peak memory of each step (reset between them;
+    remat must lower it) and its mean ms over ``REMAT_STEPS`` steps by CUDA
+    events."""
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
+    from multi_degradation_image_enhancement_tpu_torch.models.torch_init import flax_default_init_
+
+    dev = torch.device("cuda")
+    model = flax_default_init_(CDAN(), torch.Generator().manual_seed(29)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x = torch.rand((TRAIN_BATCH, *EVAL_HW, 3), device=dev, generator=gen)
+    t = torch.clamp(x + 0.1 * torch.randn(x.shape, device=dev, generator=gen), 0.0, 1.0)
+    masks = [torch.rand((TRAIN_BATCH, c, EVAL_HW[0] // p, EVAL_HW[1] // p), device=dev,
+                        generator=gen) < 0.8 for c, p in ((64, 2), (128, 4), (256, 8), (512, 8))]
+    dust = _bn_fed_biases(model)
+    require(dust <= {n for n, _ in model.named_parameters()} and len(dust) == 24,
+            "the 24 BatchNorm-fed conv biases")
+    dtypes = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {(prec, name): _remat_step(torch, model, name == "remat", prec, (x, t), masks,
+                                          dtypes if (prec, name) == ("bf16", "remat") else None)
+                for prec in ("bf16", "fp32") for name in ("plain", "repeat", "remat")}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plain, repeat, remat = (runs[("bf16", n)] for n in ("plain", "repeat", "remat"))
+    loss_equal = all(torch.equal(plain[0][k], remat[0][k]) for k in plain[0])
+    bufs_differ = [n for n in plain[2] if not torch.equal(plain[2][n], remat[2][n])]
+    b_rel, b_leaf, b_dust = _grad_distance(remat[1], plain[1], dust)
+    b_floor, _, b_dust_floor = _grad_distance(repeat[1], plain[1], dust)
+    f_plain, f_repeat, f_remat = (runs[("fp32", n)] for n in ("plain", "repeat", "remat"))
+    f_rel, f_leaf, f_dust = _grad_distance(f_remat[1], f_plain[1], dust)
+    f_floor, _, f_dust_floor = _grad_distance(f_repeat[1], f_plain[1], dust)
+    calls = {k: [d for n, d in dtypes if n == k] for k in ("conv", "linear")}  # before timing
+    ms = {}
+    for name, (_, _, _, _, _, state, step) in (("plain", plain), ("remat", remat)):
+        ms[name] = cuda_ms(lambda: step(state, x, t, masks), REMAT_STEPS, 2)
+    say("remat", f"[{smi}] B={TRAIN_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} bf16 fused: loss "
+        f"{float(plain[0]['total']):.6f} vs {float(remat[0]['total']):.6f} (bit-equal "
+        f"{loss_equal}); buffers differing {len(bufs_differ)} of {len(plain[2])}; growth launches "
+        f"plain {plain[4]}, remat {remat[4]}; output dtypes in remat blocks {calls}")
+    say("remat", f"[{smi}] bf16 gradients: remat vs plain worst leaf {b_rel:.3e} ({b_leaf}), "
+        f"plain vs its repeat {b_floor:.3e} (limit 2x); BatchNorm-fed biases {b_dust:.3e} vs "
+        f"repeat {b_dust_floor:.3e}")
+    say("remat", f"[{smi}] fp32 gradients: remat vs plain worst leaf {f_rel:.3e} ({f_leaf}), "
+        f"plain vs its repeat {f_floor:.3e} (limit 2x); BatchNorm-fed biases {f_dust:.3e} vs "
+        f"repeat {f_dust_floor:.3e}; fp32 growth launches plain {f_plain[4]}, remat {f_remat[4]}")
+    say("remat", f"[{smi}] bf16 peak memory plain {plain[3] / 2**30:.3f} GiB, remat "
+        f"{remat[3] / 2**30:.3f} GiB ({remat[3] / plain[3]:.3f}); fp32 {f_plain[3] / 2**30:.3f} -> "
+        f"{f_remat[3] / 2**30:.3f} GiB; bf16 step plain {ms['plain']:.3f} ms, remat "
+        f"{ms['remat']:.3f} ms ({ms['remat'] / ms['plain']:.3f}), mean of {REMAT_STEPS} by CUDA "
+        "events")
+    require(loss_equal, "remat loss bit-equal to the plain step's")
+    require(not bufs_differ, f"remat running statistics bit-equal (differ: {bufs_differ[:3]})")
+    require(len(calls["conv"]) == 2 and len(calls["linear"]) == 4  # the MLP runs twice a call
+            and all(set(v) == {torch.bfloat16} for v in calls.values()),
+            "the recomputation runs under the forward's bf16 autocast")
+    require(b_rel <= 2.0 * b_floor and b_dust <= 2.0 * b_dust_floor,
+            "bf16 remat gradients within twice the plain step's repeat distance")
+    require(f_rel <= 2.0 * f_floor and f_dust <= 2.0 * f_dust_floor,
+            "fp32 remat gradients within twice the plain step's repeat distance")
+    for run in (plain, f_plain):
+        require(run[4] == (16, 16), "16/16 growth launches in a plain step")
+    for run in (remat, f_remat):
+        require(run[4] == (32, 16), "32/16 growth launches in a remat step")
+    require(remat[3] < plain[3] and f_remat[3] < f_plain[3], "remat lowers the step's peak memory")
+    return {"peak_gib": (plain[3] / 2**30, remat[3] / 2**30), "ms": (ms["plain"], ms["remat"])}
+
+
+def phase_train_options(torch, smi):
+    """Phase 30: ``run.main`` on noise_synthetic.json cut to 2 epochs of 64
+    images (4 steps each) with ``remat``, a cosine ``lr_schedule``,
+    ``grad_clip`` 1.0, ``logging.profiler`` on epoch 2 and checkpoints every
+    epoch; then 1 epoch resumed from ``state_001``.  Checks the artifacts, the
+    trace's growth kernels, the resumed steps 4-8 and their learning rates
+    (read by an optimizer pre-step hook), the launches of each run."""
+    import io
+    import shutil
+
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from multi_degradation_image_enhancement_tpu_torch import run
+    from multi_degradation_image_enhancement_tpu_torch.engine.checkpoint import load_weights
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer_bwd, growth_layer_fwd,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
+
+    work = Path("build") / "chip_smoke_train_options"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = read_config("noise_synthetic")
+    cfg["train"].update(n_epoch=2, model_path=str(work / "weights"), remat=True,
+                        lr_schedule="cosine", grad_clip=1.0)
+    cfg["train"]["dataset"]["args"]["n_images"] = CLI_IMAGES
+    cfg["logging"]["root_dir"] = str(work / "runs")
+    cfg["logging"]["profiler"] = {"enabled": True, "trace_epochs": [2]}
+    cfg["logging"]["checkpoints"] = {"enabled": True, "every_n_epochs": 1}
+    steps = CLI_IMAGES // cfg["train"]["dataloader"]["args"]["batch_size"]
+    passes = cfg["train"]["bn_recalibration"]["passes"]
+    lr = cfg["train"]["lr"]
+
+    def train(config_path, log):
+        lrs = []
+        handle = register_optimizer_step_pre_hook(
+            lambda opt, args, kwargs: lrs.append(opt.param_groups[0]["lr"]))
+        growth_layer_fwd.launches = growth_layer_bwd.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                engine = run.main(load_config(str(config_path), phase="train"))
+            torch.cuda.synchronize()
+        finally:
+            handle.remove()
+        return engine, lrs, (growth_layer_fwd.launches, growth_layer_bwd.launches), \
+            time.perf_counter() - t0
+
+    (work / "config.json").write_text(json.dumps(cfg))
+    log = io.StringIO()
+    engine, lrs, launches, seconds = train(work / "config.json", log)
+    (run_dir,) = (work / "runs" / "noise_synthetic").iterdir()
+    ckpts = sorted(p.name for p in (run_dir / "checkpoints").iterdir())
+    plots = sorted(p.name for p in (run_dir / "plots").glob("loss_total.*"))
+    trace = run_dir / "profile" / "epoch_002.json"
+    names = {e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]}
+    traced = {k: sum(k in n for n in names) for k in GROWTH_KERNELS[:2]}
+    want = (32 * 2 * steps + 16 * passes * steps, 16 * 2 * steps)
+    say("train_options", f"[{smi}] 2 epochs x {steps} steps, remat + cosine + clip 1.0 + profiler: "
+        f"{seconds:.1f} s, step {engine.state.step}, checkpoints {ckpts}, plots {plots}, trace "
+        f"{trace.stat().st_size / 2**20:.1f} MiB names {traced}; growth launches {launches} "
+        f"(expected {want}: 32 fwd a remat step + 16 a recalibration forward, 16 bwd a step); "
+        f"lrs {[f'{v:.3e}' for v in lrs]}")
+    require(ckpts == ["epoch_001.pt", "epoch_002.pt", "state_001", "state_002"],
+            "epoch weight files and full states")
+    require(bool(plots), "the loss plot (PNG, or its JSON where matplotlib is absent)")
+    require(all(traced.values()), "the epoch-2 trace names growth_fwd_kernel and growth_bwd_kernel")
+    require(launches == want, "growth launches of the remat run")
+    require(engine.state.step == 2 * steps and len(lrs) == 2 * steps, "8 steps")
+
+    cfg["train"].update(n_epoch=1, resume=str(run_dir / "checkpoints" / "state_001"),
+                        model_path=str(work / "weights_resumed"))
+    cfg["logging"]["root_dir"] = str(work / "runs_resumed")
+    cfg["logging"]["profiler"] = {"enabled": False}
+    (work / "resume.json").write_text(json.dumps(cfg))
+    log = io.StringIO()
+    resumed, lrs, launches, seconds = train(work / "resume.json", log)
+    lines = [ln for ln in log.getvalue().splitlines() if ln.startswith(("[CKPT]", "Epoch"))]
+
+    def cosine(c, total=steps):  # optax's cosine_decay_schedule, alpha 0.01, T of this run
+        return lr * (0.99 * 0.5 * (1.0 + math.cos(math.pi * min(c, total) / total)) + 0.01)
+
+    want_lrs = [cosine(c) for c in range(steps, 2 * steps)]
+    want = (32 * steps + 16 * passes * steps, 16 * steps)
+    weights = work / "weights_resumed" / cfg["train"]["model_name"]
+    load_weights(str(weights), CDAN())  # strict
+    say("train_options", f"[{smi}] resumed 1 epoch in {seconds:.1f} s: {lines}; step "
+        f"{resumed.state.step}; lrs {lrs} vs the schedule's {want_lrs}; growth launches "
+        f"{launches} (expected {want}); {weights} loads strictly")
+    require(any(ln.startswith("[CKPT] Resumed from") and ln.endswith(f"at step {steps}")
+                for ln in lines), "the resume line at step 4")
+    require(resumed.state.step == 2 * steps, "the resumed run ends at step 8")
+    require(len(lrs) == steps and all(math.isclose(a, b, rel_tol=1e-12)
+                                      for a, b in zip(lrs, want_lrs)),
+            "the learning rates of counts 4-7")
+    require(launches == want, "growth launches of the resumed run")
+
+
 def main() -> int:
     import torch
 
@@ -2202,6 +2460,8 @@ def main() -> int:
     with tf32_defaults(torch) as flags:  # the directory config's CLI as a user runs it
         say("dir_config", f"phase 28 with {flags}")
         phase_dir_config(torch, smi)
+    phase_remat(torch, smi)
+    phase_train_options(torch, smi)
 
     src = f"{PKG}/csrc"
     ref = "multi_degradation_image_enhancement_tpu/ops/pallas"

@@ -1,17 +1,20 @@
 """Device data loader (counterpart of
 ``multi_degradation_image_enhancement_tpu/data/loader.py``).
 
-Two kinds of dataset:
+Three modes, the JAX loader's:
 
 * datasets that synthesise their pairs on the device (``device_degrade``,
-  ``data.synthetic``): the clean set is copied to the device once (uint8
-  NHWC); a batch is a device gather, the dataset's degradation
-  (``ops.degradations.apply_degradation``, any of the nine; noise by its
-  plain version, ``degradations.py:124``, as the JAX loader uses) and the
-  paired transform, all on the device;
+  ``data.synthetic``) from a procedural clean set: the set is copied to the
+  device once (uint8 NHWC); a batch is a device gather, the dataset's
+  degradation (``ops.degradations.apply_degradation``, any of the nine;
+  noise by its plain version, ``degradations.py:124``, as the JAX loader
+  uses) and the paired transform, all on the device;
+* the same with a ``clean_root``: a pool of threads decodes the clean
+  images of batch i+1 while batch i runs; each batch is moved to the device,
+  degraded and transformed there;
 * host-decoded directory datasets (``data.dataset.PairedDataset`` and
-  ``UnpairedDataset``): a pool of threads decodes batch i+1 while batch i
-  runs; each batch is moved to the device and transformed there.
+  ``UnpairedDataset``): decoded one batch ahead as above, then moved to the
+  device and transformed there.
 
 Yields ``(inputs, targets, mask)``: NHWC f32 in the transform's output
 domain and a per-sample validity vector ``[B]`` of {0., 1.}; an unpaired
@@ -69,7 +72,8 @@ class DeviceDataLoader:
         self._epoch = 0
         self._degrade = getattr(dataset, "device_degrade", None)
         self._paired = bool(getattr(dataset, "paired", True))
-        if self._degrade is not None:
+        self._clean = None  # the device-resident clean set, when the dataset holds one
+        if self._degrade is not None and getattr(dataset, "clean", None) is not None:
             self._clean = torch.from_numpy(dataset.clean).to(self.device)
         else:
             self._pool = ThreadPoolExecutor(max_workers=max(1, int(num_workers) or 1))
@@ -79,8 +83,8 @@ class DeviceDataLoader:
 
     def _host_batch(self, idxs: np.ndarray):
         """Decode a batch on the pool: (inputs, targets) u8 [B,H,W,3], or
-        (inputs, None) for an unpaired dataset."""
-        if self._paired:
+        (inputs, None) for an unpaired dataset or a clean set to degrade."""
+        if self._paired and self._degrade is None:
             pairs = list(self._pool.map(self.dataset.load_pair, idxs))
             return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
         return np.stack(list(self._pool.map(self.dataset.load_single, idxs))), None
@@ -100,13 +104,16 @@ class DeviceDataLoader:
             if len(idxs) < bsz:
                 idxs = np.concatenate([idxs, np.full(bsz - len(idxs), idxs[-1])])
             batches.append(idxs)
-        feed = batches if self._degrade is not None else prefetch(batches, self._host_batch)
+        feed = batches if self._clean is not None else prefetch(batches, self._host_batch)
         transform = self.dataset.transform
         for bi, (item, n_valid) in enumerate(zip(feed, n_valids)):
             gen = torch.Generator(device=self.device).manual_seed(batch_seed(self.seed, epoch, bi))
             mask = (torch.arange(bsz, device=self.device) < n_valid).float()
-            if self._degrade is not None:
+            if self._clean is not None:
                 clean = self._clean[torch.from_numpy(item).to(self.device)].float()
+            elif self._degrade is not None:
+                clean = torch.from_numpy(item[0]).to(self.device).float()
+            if self._degrade is not None:
                 degraded = apply_degradation(self._degrade, clean, gen)
                 yield (*transform.apply_paired(degraded, clean, gen), mask)
                 continue

@@ -4,10 +4,12 @@
 The albumentations backend's ops: HorizontalFlip, VerticalFlip,
 RandomRotate90, Resize, RandomBrightnessContrast, RandomGamma, GaussNoise,
 MotionBlur, Sharpen, HueSaturationValue, CLAHE, Normalize and ToTensorV2.
-The torchvision backend (and the default ToTensor chain it implies) raises
-and names ROADMAP.md.  Images are NHWC f32 in 0..255 in; ``Normalize`` moves
-them to the network's domain; ``ToTensorV2`` keeps NHWC (value identity), as
-in the JAX package.
+The torchvision backend's: Resize (``size`` or ``height``/``width``),
+ToTensor, Normalize (on [0, 1] values), RandomHorizontalFlip,
+RandomVerticalFlip, RandomRotation and ColorJitter; no transform block means
+the torchvision ``ToTensor`` chain.  Images are NHWC f32 in 0..255 in;
+``Normalize`` / ``ToTensor`` move them to the network's domain;
+``ToTensorV2`` keeps NHWC (value identity), as in the JAX package.
 
 An op is a pair ``(sample, apply)``: ``sample(shape, generator, device)``
 draws the batch's per-sample parameters once (on the images' device, so no
@@ -232,6 +234,75 @@ def _op_normalize(mean, std, max_pixel_value: float = 255.0) -> Op:
     return _no_params, lambda x, _: (x - mean_t.to(x.device)) / std_t.to(x.device)
 
 
+def _op_to_tensor_scale() -> Op:
+    """torchvision ToTensor's values: 0..255 → [0, 1] (NHWC kept)."""
+    return _no_params, lambda x, _: x / 255.0
+
+
+def _op_identity() -> Op:
+    return _no_params, lambda x, _: x
+
+
+def _gray(x: torch.Tensor) -> torch.Tensor:
+    return 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+
+
+def hue_shift(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """Rotate each sample's hue by ``shift`` [B] (a fraction of the colour
+    wheel) in YIQ, clipped to 0..255 (``_hue_shift``, ``transforms.py:351``)."""
+    angle = shift * 2.0 * torch.pi
+    cos, sin = torch.cos(angle)[:, None, None], torch.sin(angle)[:, None, None]
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = _gray(x)
+    i = 0.596 * r - 0.274 * g - 0.322 * b
+    q = 0.211 * r - 0.523 * g + 0.312 * b
+    i2 = i * cos - q * sin
+    q2 = i * sin + q * cos
+    r2 = y + 0.956 * i2 + 0.621 * q2
+    g2 = y - 0.272 * i2 - 0.647 * q2
+    b2 = y - 1.106 * i2 + 1.703 * q2
+    return torch.clamp(torch.stack([r2, g2, b2], dim=-1), 0.0, 255.0)
+
+
+def color_jitter(x: torch.Tensor, brightness=None, contrast=None, saturation=None,
+                 hue=None) -> torch.Tensor:
+    """ColorJitter on 0..255 NHWC with explicit per-sample parameters [B]
+    (``None`` skips a step), in the JAX op's fixed order: brightness factor,
+    contrast factor about the image's mean gray, saturation factor about each
+    pixel's gray, hue shift; each clipped to 0..255."""
+    out = x
+    if brightness is not None:
+        out = torch.clamp(out * _per_sample(brightness), 0.0, 255.0)
+    if contrast is not None:
+        mean = _gray(out).mean(dim=(1, 2), keepdim=True)[..., None]
+        out = torch.clamp(mean + _per_sample(contrast) * (out - mean), 0.0, 255.0)
+    if saturation is not None:
+        gray = _gray(out)[..., None]
+        out = torch.clamp(gray + _per_sample(saturation) * (out - gray), 0.0, 255.0)
+    if hue is not None:
+        out = hue_shift(out, hue)
+    return out
+
+
+def _op_color_jitter(brightness: float = 0.0, contrast: float = 0.0, saturation: float = 0.0,
+                     hue: float = 0.0, **_ignored) -> Op:
+    """torchvision ColorJitter (``_op_color_jitter``, ``transforms.py:322``):
+    factors U(max(0, 1 − a), 1 + a) for each amount a set, a hue shift
+    U(−hue, hue); see :func:`color_jitter`."""
+
+    def sample(shape, gen, device):
+        params = {}
+        for name, amount in (("brightness", brightness), ("contrast", contrast),
+                             ("saturation", saturation)):
+            if amount:
+                params[name] = _uniform(shape, gen, device, max(0.0, 1.0 - amount), 1.0 + amount)
+        if hue:
+            params["hue"] = _uniform(shape, gen, device, -hue, hue)
+        return params
+
+    return sample, lambda x, params: color_jitter(x, **params)
+
+
 def _albu_op(name: str, args: Dict[str, Any]) -> Op:
     p = args.get("p", 0.5)
     if name == "HorizontalFlip":
@@ -261,8 +332,28 @@ def _albu_op(name: str, args: Dict[str, Any]) -> Op:
     if name == "Normalize":
         return _op_normalize(args["mean"], args["std"], args.get("max_pixel_value", 255.0))
     if name == "ToTensorV2":
-        return _no_params, lambda x, _: x
+        return _op_identity()
     raise ValueError(f"[albumentations] Transform not supported: {name}")
+
+
+def _tv_op(name: str, args: Dict[str, Any]) -> Op:
+    """The torchvision backend's ops (``_tv_op``, ``transforms.py:272-295``)."""
+    if name == "Resize":
+        h, w = tuple(args["size"]) if "size" in args else (args["height"], args["width"])
+        return _op_resize(h, w)
+    if name == "ToTensor":
+        return _op_to_tensor_scale()
+    if name == "Normalize":  # on ToTensor's [0, 1] values
+        return _op_normalize(args["mean"], args["std"], 1.0)
+    if name == "RandomHorizontalFlip":
+        return _op_hflip(args.get("p", 0.5))
+    if name == "RandomVerticalFlip":
+        return _op_vflip(args.get("p", 0.5))
+    if name == "RandomRotation":
+        return _op_rotation(args.get("degrees", 0))
+    if name == "ColorJitter":
+        return _op_color_jitter(**args)
+    raise ValueError(f"[torchvision] Transform not supported: {name}")
 
 
 class DeviceTransform:
@@ -288,19 +379,18 @@ class DeviceTransform:
 
 def build_transforms(transform_cfg: Optional[Dict[str, Any]]) -> Tuple[str, DeviceTransform]:
     """A transform chain from a config block; returns ``(backend, transform)``.
-    Only the albumentations backend is ported."""
+    No block: the torchvision ``ToTensor`` chain (``transforms.py:399-400``)."""
     if not transform_cfg:
-        raise ValueError("a transform config is required: the default torchvision ToTensor "
-                         "chain is not ported to PyTorch yet (ROADMAP.md, queue 1)")
+        return "torchvision", DeviceTransform([_op_to_tensor_scale()], None)
     backend = transform_cfg.get("backend", "torchvision")
-    if backend != "albumentations":
-        raise ValueError(f"transform backend {backend!r} is not ported to PyTorch yet "
-                         "(ROADMAP.md, queue 1)")
+    make_op = {"albumentations": _albu_op, "torchvision": _tv_op}.get(backend)
     target_hw: Optional[Tuple[int, int]] = None
     ops: List[Op] = []
     for op in transform_cfg.get("ops", []) or []:
         name, args = op["name"], op.get("args", {}) or {}
         if name == "Resize":
-            target_hw = (args["height"], args["width"])
-        ops.append(_albu_op(name, args))
+            target_hw = tuple(args["size"]) if "size" in args else (args["height"], args["width"])
+        if make_op is None:  # raised at the first op, as in the JAX package
+            raise ValueError(f"Unknown transform backend: {backend}")
+        ops.append(make_op(name, args))
     return backend, DeviceTransform(ops, target_hw)

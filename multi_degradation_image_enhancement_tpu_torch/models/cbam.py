@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from multi_degradation_image_enhancement_tpu_torch.models.norm import BatchNorm2d
+from multi_degradation_image_enhancement_tpu_torch.models.norm import BatchNorm2d, Rematerialized
 
 
 class BasicConv(nn.Module):
@@ -64,13 +64,14 @@ class SpatialGate(nn.Module):
         return x * torch.sigmoid(self.spatial(compress))
 
 
-class CBAM(nn.Module):
-    """Channel gate, then spatial gate (reference ``models/cbam.py:84-95``)."""
+class CBAM(Rematerialized):
+    """Channel gate, then spatial gate (reference ``models/cbam.py:84-95``);
+    one rematerialised block under ``remat``."""
 
     def __init__(self, gate_channels: int, reduction_ratio: int = 16):
         super().__init__()
         self.ChannelGate = ChannelGate(gate_channels, reduction_ratio)
         self.SpatialGate = SpatialGate()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def block_forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.SpatialGate(self.ChannelGate(x))

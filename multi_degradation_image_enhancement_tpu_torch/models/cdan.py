@@ -26,6 +26,13 @@ incremental batch statistics, as ``DenseBlock._fused_impl`` does in the JAX
 package; the variable tree is the same either way.  Compute precision follows
 ``torch.autocast`` (convs, linears and the transition product in bf16 under a
 bf16 autocast), while every BatchNorm in train or refresh mode runs in f32.
+
+``model.remat = True`` (``train.remat``) rematerialises every ConvBlock,
+DenseBlock (``final_dense`` included) and CBAM (the bottleneck included),
+the set the JAX package wraps in ``nn.checkpoint`` (``cdan.py:249-263``):
+each block's internals are computed again in the backward instead of being
+kept (``models.norm.Rematerialized``).  The decoder's deconv + BN + ReLU and
+the dropout between blocks stay outside, as there.
 """
 
 from __future__ import annotations
@@ -37,7 +44,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from multi_degradation_image_enhancement_tpu_torch.models.cbam import CBAM
-from multi_degradation_image_enhancement_tpu_torch.models.norm import BatchNorm2d, channel_stats
+from multi_degradation_image_enhancement_tpu_torch.models.norm import (
+    BatchNorm2d,
+    Rematerialized,
+    channel_stats,
+)
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import growth_layer
 
 DROP_RATE = 0.2
@@ -61,7 +72,7 @@ def apply_dropout(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, x / (1.0 - DROP_RATE), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-class ConvBlock(nn.Module):
+class ConvBlock(Rematerialized):
     """Conv 3×3 → BN → ReLU (reference ``models/cdan.py:8-19``)."""
 
     def __init__(self, in_channels: int, out_channels: int):
@@ -69,11 +80,11 @@ class ConvBlock(nn.Module):
         self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.bn = BatchNorm2d(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def block_forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.bn(self.conv(x)))
 
 
-class DenseBlock(nn.Module):
+class DenseBlock(Rematerialized):
     """4 × (BN → ReLU → 3×3 conv to ``growth_rate``, concat), then
     BN → ReLU → 1×1 transition back to ``in_channels`` (reference
     ``models/cdan.py:22-53``).
@@ -107,7 +118,7 @@ class DenseBlock(nn.Module):
             BatchNorm2d(c), nn.ReLU(), nn.Conv2d(c, in_channels, 1)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def block_forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused and self.growth_rate == 16:
             return self._fused_forward(x)
         feats = x
@@ -239,6 +250,17 @@ class CDAN(nn.Module):
     def fused_dense(self, value: bool) -> None:
         for block in self.dense_blocks():
             block.fused = bool(value)
+
+    @property
+    def remat(self) -> bool:
+        blocks = [m for m in self.modules() if isinstance(m, Rematerialized)]
+        return all(block.remat for block in blocks)
+
+    @remat.setter
+    def remat(self, value: bool) -> None:
+        for m in self.modules():
+            if isinstance(m, Rematerialized):
+                m.remat = bool(value)
 
     @property
     def stats_refresh(self) -> bool:

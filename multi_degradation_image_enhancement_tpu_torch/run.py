@@ -6,8 +6,9 @@
         -c multi_degradation_image_enhancement_tpu/config/noise_synthetic.json -p test
 
 The same ``-c/-p`` contract and config files as the JAX runner (read as
-files; nothing of the JAX package is imported).  ``-p train`` trains and
-writes the checkpoint; ``-p test`` scores it.  The phase's block picks the
+files; nothing of the JAX package is imported).  ``-p train`` trains,
+writes the checkpoint and draws the loss curves into the run directory's
+``plots/``; ``-p test`` scores it.  The phase's block picks the
 device (``train.device`` / ``test.device``): missing, null, ``"cuda"`` or
 ``"tpu"`` → CUDA (raises without a card), ``"cpu"`` → CPU.
 """
@@ -15,10 +16,6 @@ device (``train.device`` / ``test.device``): missing, null, ``"cuda"`` or
 from __future__ import annotations
 
 import argparse
-import random
-
-import numpy as np
-import torch
 
 from multi_degradation_image_enhancement_tpu_torch.data.loader import define_dataloader
 from multi_degradation_image_enhancement_tpu_torch.engine.model import resolve_device
@@ -29,14 +26,13 @@ from multi_degradation_image_enhancement_tpu_torch.utils.registry import (
     define_dataset,
     define_network,
 )
+from multi_degradation_image_enhancement_tpu_torch.utils.rng import set_seed_and_cudnn
 
 
 def build_session(config):
     """Resolve a config into ``(logger, engine)`` without running anything."""
     phase = config["phase"]
-    random.seed(42)
-    np.random.seed(42)
-    torch.manual_seed(42)
+    set_seed_and_cudnn()
     phase_cfg = config[phase]
     device = resolve_device(phase_cfg["device"])
     logger = ExperimentLogger(config)
@@ -54,6 +50,7 @@ def main(config):
     try:
         if config["phase"] == "train":
             engine.train()
+            logger.generate_plots()
         else:
             engine.test()
     finally:

@@ -5,9 +5,9 @@ same artifacts and row schemas).
 A run directory ``<root_dir>/<name>/<YYYY-MM-DD_HH-MM-SS>`` holds
 ``train.csv``/``train.jsonl``, ``test.csv``/``test.jsonl``, an incrementally
 rewritten ``summary.json`` and a copy of the config.  CSV headers are frozen
-from the first row's keys; rows are flushed at once.  The JAX logger's
-``generate_plots``, which its engine never calls, is not ported;
-``utils.plotting.plot_losses_from_csv`` draws the curves of a ``train.csv``.
+from the first row's keys; rows are flushed at once.  :meth:`generate_plots`,
+which the CLI calls after training as the JAX CLI does (``run.py:62``), draws
+the epoch rows' loss curves into ``plots/``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import csv
 import json
 import os
+import traceback
 from datetime import datetime
 from typing import Any, Dict, Optional
 
@@ -92,6 +93,25 @@ class ExperimentLogger:
             return
         with open(self._path("summary.json"), "w", encoding="utf-8") as f:
             json.dump(self._summary, f, indent=2, ensure_ascii=False)
+
+    def generate_plots(self) -> None:
+        """The loss curves of ``train.csv`` into ``<run_dir>/plots/``
+        (``utils.plotting.plot_losses_from_csv``).  A plotting failure is
+        reported and never ends the run, as in the JAX logger."""
+        if not self.enabled or self._run_dir is None:
+            return
+        train_csv = self._path("train.csv")
+        if not os.path.isfile(train_csv):
+            return
+        from multi_degradation_image_enhancement_tpu_torch.utils.plotting import (
+            plot_losses_from_csv,
+        )
+
+        try:
+            plot_losses_from_csv(train_csv, self._path("plots"))
+        except Exception:  # noqa: BLE001 - a plot must not end a finished run
+            print("[LOGGER] loss plots failed:")
+            traceback.print_exc()
 
     def close(self) -> None:
         for f in self._files.values():

@@ -5,7 +5,10 @@ The shipped configs name the reference's modules (``["models.cdan",
 "CDAN"]``); each name that the train and test phases of the shipped
 configs use (synthetic and directory-backed) maps to the port's class, in
 the short and in the long form.  Any other name raises and names
-ROADMAP.md.
+ROADMAP.md.  Every error raised while an object is built reaches the caller
+as the JAX registry's ``NotImplementedError("<init_type> [<Class>() from
+<module>] not recognized: <error>")``, chained to it (``utils/registry.py:
+80-99``).
 """
 
 from __future__ import annotations
@@ -63,26 +66,33 @@ def resolve(module_path: str, class_name: str) -> Any:
         ) from None
 
 
-def init_obj(obj_config: Dict[str, Any], *args: Any, **modify_kwargs: Any) -> Any:
+def init_obj(obj_config: Dict[str, Any], *args: Any, init_type: str = "Network",
+             **modify_kwargs: Any) -> Any:
     """Instantiate ``obj_config["name"]`` (``[module, Class]``) with
-    ``obj_config["args"]`` updated by ``modify_kwargs``."""
+    ``obj_config["args"]`` updated by ``modify_kwargs``; any failure raises
+    ``NotImplementedError`` naming ``init_type`` and the class, from it."""
     name = obj_config["name"]
     if not isinstance(name, list):
         raise NotImplementedError(f"a bare class name ({name!r}) is not ported; use [module, Class]")
+    module_path, class_name = name[0], name[1]
     kwargs = dict(obj_config.get("args", {}) or {})
     kwargs.update(modify_kwargs)
-    return resolve(name[0], name[1])(*args, **kwargs)
+    try:
+        return resolve(module_path, class_name)(*args, **kwargs)
+    except Exception as e:  # the JAX registry's contract (the reference's too)
+        raise NotImplementedError(
+            f"{init_type} [{class_name}() from {module_path}] not recognized: {e}") from e
 
 
 def create_model(**cfg_model: Any) -> Any:
     """The engine from ``config["model"]["which_model"]``."""
     model_config = dict(cfg_model["config"]["model"]["which_model"])
-    return init_obj(model_config, **cfg_model)
+    return init_obj(model_config, init_type="Model", **cfg_model)
 
 
 def define_network(network_config: Dict[str, Any]) -> Any:
-    return init_obj(network_config)
+    return init_obj(network_config, init_type="Network")
 
 
 def define_dataset(dataset_config: Dict[str, Any]) -> Any:
-    return init_obj(dataset_config)
+    return init_obj(dataset_config, init_type="Dataset")

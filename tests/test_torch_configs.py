@@ -113,8 +113,9 @@ def test_pipelines_follow_the_engine_device(tmp_path):
 def test_directory_backed_configs_still_raise(tmp_path):
     """A directory config (``data.dataset.PairedDataset``) resolves to the
     port's dataset: with its shipped roots absent it raises for the missing
-    directory, as the JAX package does; with the roots present (rewritten
-    into ``tmp_path``) the session builds on them."""
+    directory, as the JAX package does (the registry's NotImplementedError,
+    chained to the FileNotFoundError); with the roots present (rewritten into
+    ``tmp_path``) the session builds on them."""
     from PIL import Image
 
     from multi_degradation_image_enhancement_tpu_torch.data.dataset import PairedDataset
@@ -124,8 +125,10 @@ def test_directory_backed_configs_still_raise(tmp_path):
     cfg["logging"]["root_dir"] = str(tmp_path / "runs")
     path = tmp_path / "blur.json"
     path.write_text(json.dumps(cfg))
-    with pytest.raises(FileNotFoundError, match="blur/train/degraded"):
+    with pytest.raises(NotImplementedError, match="blur/train/degraded") as err:
         run.build_session(load_config(str(path), phase="train"))
+    assert isinstance(err.value.__cause__, FileNotFoundError)
+    assert "blur/train/degraded" in str(err.value.__cause__)
     args = cfg["train"]["dataset"]["args"]
     for key, sub in (("input_root", "degraded"), ("target_root", "clean")):
         args[key] = str(tmp_path / "blur" / sub)

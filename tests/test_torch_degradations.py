@@ -165,8 +165,11 @@ def test_synthetic_dataset_accepts_every_degradation(name):
     assert ds.device_degrade == name and ds.clean.shape == (2, 16, 24, 3)
 
 
-def test_synthetic_dataset_refuses_unknown_names_and_clean_root():
+def test_synthetic_dataset_refuses_unknown_names_and_clean_root(tmp_path):
+    """An unknown degradation, and a ``clean_root`` holding no image, raise
+    the JAX package's errors (``data/synthetic.py:72-90``)."""
     with pytest.raises(ValueError, match="Unknown degradation"):
         SyntheticPairedDataset(degradation="haze", n_images=1)
-    with pytest.raises(ValueError, match="clean_root"):
-        SyntheticPairedDataset(degradation="blur", clean_root="/nonexistent", n_images=1)
+    (tmp_path / "notes.txt").write_text("not an image")
+    with pytest.raises(RuntimeError, match="No images found"):
+        SyntheticPairedDataset(degradation="blur", clean_root=str(tmp_path), n_images=1)

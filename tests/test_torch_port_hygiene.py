@@ -1,6 +1,7 @@
 """PyTorch port hygiene: it imports and runs a CPU serving step, the CPU
 training and test CLI, the CPU serving pipeline CLI, the classifier trainer
-and the two dataset generators with JAX blocked, refuses CUDA without a card, counts no launch on the plain path, refuses to
+and the two dataset generators with JAX blocked, refuses CUDA without a card, counts no launch on the plain path (a
+rematerialised train step included), refuses to
 run its inference kernels under autograd, and its C entry points match the
 CUDA sources."""
 
@@ -145,8 +146,12 @@ def test_no_jax_import_in_port_sources():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flax|multi_degradation_image_enhancement_tpu)\b", re.M
     )
-    offenders = [str(p) for p in PKG_DIR.rglob("*.py") if pattern.search(p.read_text())]
+    sources = list(PKG_DIR.rglob("*.py"))
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
+    scanned = {p.relative_to(PKG_DIR).as_posix() for p in sources}
+    assert {"utils/rng.py", "models/torch_init.py", "engine/state.py", "engine/checkpoint.py",
+            "recalibrate_bn.py"} <= scanned
 
 
 def test_cuda_without_a_card_raises():
@@ -200,6 +205,25 @@ def test_plain_path_counts_no_launch():
     eye = torch.eye(64, dtype=torch.bfloat16)
     assert torch.equal(xt_dot_m(m_dot_xt(x, eye), eye), x)
     assert transpose(x).shape == (1, 64, 8)
+    assert _launches() == n0
+
+
+def test_remat_on_cpu_counts_no_launch():
+    """A rematerialised fused train step on CPU tensors (every block
+    recomputed in the backward, the growth layers twice) runs the plain
+    growth layer and counts no kernel launch."""
+    from multi_degradation_image_enhancement_tpu_torch.engine.model import make_train_step
+    from multi_degradation_image_enhancement_tpu_torch.engine.state import TrainState
+    from multi_degradation_image_enhancement_tpu_torch.ops.losses import build_loss_pipeline
+
+    n0 = _launches()
+    model = CDAN()
+    model.fused_dense = model.remat = True
+    state = TrainState.create(model, 1e-3, grad_clip=1.0)
+    loss_cfg = {"terms": [{"name": "l1", "weight": 1.0}]}
+    x = torch.rand(1, 16, 16, 3)
+    loss = make_train_step(build_loss_pipeline(loss_cfg, "cpu"), "fp32")(state, x, x.clone())
+    assert state.step == 1 and bool(torch.isfinite(loss["total"]))
     assert _launches() == n0
 
 

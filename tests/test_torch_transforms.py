@@ -156,5 +156,5 @@ def test_clahe_matches_jax(clip_limit):
 def test_unknown_op_and_backend_raise():
     with pytest.raises(ValueError, match="not supported"):
         tf.build_transforms({"backend": "albumentations", "ops": [{"name": "Blur"}]})
-    with pytest.raises(ValueError, match="not ported"):
-        tf.build_transforms({"backend": "torchvision", "ops": []})
+    with pytest.raises(ValueError, match="Unknown transform backend"):
+        tf.build_transforms({"backend": "kornia", "ops": [{"name": "ToTensor"}]})
