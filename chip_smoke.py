@@ -128,7 +128,29 @@ line per phase, and exits non-zero at the first failure:
     (``state_00N``, ``epoch_00N.pt``, the loss plot, a trace naming both growth
     kernels), then a 1-epoch run resumed from ``state_001``: step 4 to 8, its
     learning rates the schedule's at counts 4-7, launches counted around each
-    run.
+    run;
+31. NCCL at world 1: ``torchrun --nproc_per_node 1`` on phase 10's CLI run
+    with ``train.mesh {"data": -1}``, then twice without it, in one process:
+    growth launches as phase 10's, the checkpoints' restored images against
+    the plain run's within max(2e-3, twice the plain runs' own distance), the
+    sharded step's ms beside the plain step's (the cost of sync-BN's and the
+    gradient's all-reduces at world 1);
+32. two ranks on the one card over ``gloo``: the full-width fp32 fused train
+    step at B=16·256×384 on ``{"data": 2}`` and on ``{"spatial": 2}``
+    against the one-process step (same weights, batch and masks; cuDNN
+    deterministic), fused and canonical, each gradient leaf's relative L2
+    distance within twice its own plain-vs-plain distance (its exact
+    repeat, and the batch reordered six ways);
+    16/16 growth launches a rank; the halo'd growth layer's kernels (#4-#7)
+    against its plain version on H shards;
+33. the expert-parallel server: ``run_pipeline --expert-mesh 3`` under
+    ``torchrun --nproc_per_node 3`` (ranks over ``gloo``) on phase 24's 64
+    PNGs and nine experts, top1 and sequential ``severity``, against phase
+    24's one-process CLI (1 LSB), ``--expert-mesh 2`` refused; then a 2-rank
+    ``RoutedRestorer`` on three experts (n_pad 1) against the unsharded one.
+    Phases 31-33 run their ranks as ``chip_smoke.py --worker <name>
+    <dir> [args]`` under torchrun, and print each run's backend, world
+    size and mesh; their times are of ranks sharing one card, not scaling.
 
 Phases 5, 12-14, 17 and 24 use CDANs whose BatchNorm statistics keep the whole path
 live (``live_cdan``): with ``init_cdan``'s statistics the decoder's ReLUs
@@ -1720,15 +1742,15 @@ def phase_pipeline(torch, smi):
     ran = [0]
     load_expert_bank = run_pipeline.load_expert_bank
 
-    def load_counted(*args):
-        names, forwards = load_expert_bank(*args)
+    def load_counted(*args, **kwargs):
+        names, forwards = load_expert_bank(*args, **kwargs)
 
         def counted(forward):
             def run(x):
                 ran[0] += 1
                 return forward(x)
             return run
-        return names, [counted(f) for f in forwards]
+        return names, [None if f is None else counted(f) for f in forwards]
 
     records = {}
     for mode, ordering in (("top1", "fixed"), ("sequential", "severity")):
@@ -2407,9 +2429,523 @@ def phase_train_options(torch, smi):
     require(launches == want, "growth launches of the resumed run")
 
 
+# ------------------------------------------------------- phases 31-33: scale-out
+
+SCALE_TIMEOUT = 420  # seconds a torchrun launch of phases 31-33 may take
+SCALE_RUNS = (("sharded", {"data": -1}), ("plain", None), ("repeat", None))  # phase 31
+
+
+def torchrun(nproc: int, args):
+    """``torchrun --standalone --nproc_per_node nproc`` on this script's
+    worker mode; returns (stdout, seconds).  torchrun ends every rank when
+    one fails; a launch still running at ``SCALE_TIMEOUT`` is killed, and
+    either fails the phase."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), str(Path(__file__).resolve()), "--worker", *map(str, args)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=SCALE_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"{args[0]} on {nproc} ranks exits 0:\n{proc.stdout[-2000:]}\n"
+            f"{proc.stderr[-4000:]}")
+    return proc.stdout, seconds
+
+
+def _scale_config(work: Path, mesh=None) -> Path:
+    """noise_synthetic.json cut to one epoch of 64 images (phase 10's run),
+    with ``train.mesh`` when given; every output under ``work``."""
+    cfg = read_config("noise_synthetic")
+    cfg["train"].update(n_epoch=1, model_path=str(work / "weights"))
+    if mesh:
+        cfg["train"]["mesh"] = mesh
+    cfg["train"]["dataset"]["args"]["n_images"] = CLI_IMAGES
+    cfg["logging"]["root_dir"] = str(work / "runs")
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "config.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def worker_nccl_train(torch, work: Path):
+    """Phase 31's rank (``torchrun --nproc_per_node 1``): ``run.main`` with
+    ``train.mesh {"data": -1}`` (``run`` joins the process group: NCCL), then
+    twice without it, the growth launches counted around each; then the
+    sharded and the plain step timed on one loader batch, in turns."""
+    import torch.distributed as dist
+
+    from multi_degradation_image_enhancement_tpu_torch import run
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer_bwd, growth_layer_fwd,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.parallel.mesh import shard_batch
+    from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
+
+    out, engines = {"runs": {}}, {}
+    for name, mesh in SCALE_RUNS:
+        config = load_config(str(_scale_config(work / name, mesh)), phase="train")
+        torch.cuda.synchronize()
+        growth_layer_fwd.launches = growth_layer_bwd.launches = 0
+        t0 = time.perf_counter()
+        engines[name] = run.main(config)
+        torch.cuda.synchronize()
+        out["runs"][name] = {"seconds": time.perf_counter() - t0,
+                             "launches": (growth_layer_fwd.launches, growth_layer_bwd.launches)}
+    mesh = engines["sharded"].mesh
+    out.update(backend=dist.get_backend(), world=dist.get_world_size(),
+               mesh=None if mesh is None else mesh.shape,
+               plain_sharded=engines["plain"].mesh is not None)
+    inputs, targets, mask = next(iter(engines["plain"].dataloader))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out["ms"] = {"plain": [], "sharded": []}
+    for name in ("plain", "sharded", "sharded", "plain"):
+        e = engines[name]
+        batch = shard_batch((inputs, targets, mask), e.mesh) if e.mesh else (inputs, targets, mask)
+        out["ms"][name].append(
+            cuda_ms(lambda: e._train_step(e.state, batch[0], batch[1], gen, batch[2]), 10, 2))
+    from torch.profiler import ProfilerActivity, profile
+
+    for name in ("plain", "sharded"):  # where the sharded step's extra time goes
+        e = engines[name]
+        batch = shard_batch((inputs, targets, mask), e.mesh) if e.mesh else (inputs, targets, mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                e._train_step(e.state, batch[0], batch[1], gen, batch[2])
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 3
+        events = prof.key_averages()
+        device = sum(ev.self_device_time_total for ev in events) / 1e3 / 3
+        nccl = [ev for ev in events if "nccl" in ev.key.lower()]
+        out.setdefault("profile", {})[name] = {
+            "wall_ms": wall, "device_ms": device,
+            "nccl": sorted(((ev.key, ev.count // 3, ev.self_cpu_time_total / 1e3 / 3,
+                             ev.self_device_time_total / 1e3 / 3) for ev in nccl),
+                           key=lambda r: -r[2])[:6],
+            "cpu_top": sorted(((ev.key, ev.count // 3, ev.self_cpu_time_total / 1e3 / 3)
+                               for ev in events), key=lambda r: -r[2])[:8]}
+    torch.save(out, work / "result.pt")
+
+
+def _restored(torch, weights: Path):
+    """A checkpoint's f32 module (TF32 off) on a fixed batch of 2: what two
+    training runs are compared by."""
+    from multi_degradation_image_enhancement_tpu_torch.engine.checkpoint import load_weights
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN, eval_forward
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.rand((2, *EVAL_HW, 3), device="cuda", generator=gen)
+    return eval_forward(load_weights(str(weights), CDAN()).to("cuda").eval(), torch.float32)(x)
+
+
+def phase_nccl_world1(torch, smi):
+    """Phase 31: NCCL at world 1.  ``torchrun --nproc_per_node 1`` on
+    phase 10's CLI run with ``train.mesh {"data": -1}`` (bf16, fused
+    DenseBlocks, BN recalibration), then the same run twice without the mesh
+    in the same process.  The sharded run's growth launches are phase 10's;
+    its checkpoint restores images within max(2e-3, twice the two plain
+    runs' distance) of the plain run's (the card's step does not repeat
+    itself bit for bit, and Adam moves near-zero gradients by up to lr); the
+    sharded step's ms beside the plain step's (CUDA events, in turns): what
+    sync-BN's all-reduces and the gradient's cost at world 1 on one H100."""
+    import shutil
+
+    work = Path("build") / "chip_smoke_scale" / "nccl"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    _, seconds = torchrun(1, ["nccl_train", work])
+    res = torch.load(work / "result.pt")
+    cfg = read_config("noise_synthetic")["train"]
+    steps = CLI_IMAGES // cfg["dataloader"]["args"]["batch_size"]
+    want = (16 * (steps + cfg["bn_recalibration"]["passes"] * steps), 16 * steps)
+    imgs = {n: _restored(torch, work / n / "weights" / cfg["model_name"]) for n, _ in SCALE_RUNS}
+    d_sharded = (imgs["sharded"] - imgs["plain"]).abs().max().item()
+    d_repeat = (imgs["repeat"] - imgs["plain"]).abs().max().item()
+    limit = max(2e-3, 2.0 * d_repeat)
+    ms = {k: v for k, v in res["ms"].items()}
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    runs = res["runs"]
+    say("scale", f"[{smi}] phase 31: backend {res['backend']}, world {res['world']}, mesh "
+        f"{res['mesh']}; torchrun {seconds:.1f} s; CLI runs "
+        + ", ".join(f"{n} {r['seconds']:.1f} s launches {r['launches']}" for n, r in runs.items())
+        + f" (expected {want}); restored images: sharded vs plain max |d| {d_sharded:.3e}, "
+        f"plain vs its repeat {d_repeat:.3e} (limit {limit:.3e})")
+    say("times", f"[{smi}] phase 31 train step B={TRAIN_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} bf16 "
+        f"fused, NCCL world 1: sharded {ms['sharded'][0]:.3f}/{ms['sharded'][1]:.3f} ms, plain "
+        f"{ms['plain'][0]:.3f}/{ms['plain'][1]:.3f} ms (in turns; means {mean['sharded']:.3f} "
+        f"vs {mean['plain']:.3f}, x{mean['sharded'] / mean['plain']:.3f}), 10 steps each by "
+        "CUDA events")
+    for name, prof in res["profile"].items():
+        say("scale", f"[{smi}] phase 31 torch.profiler, {name} step (mean of 3): wall "
+            f"{prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms (busy share "
+            f"{prof['device_ms'] / prof['wall_ms']:.3f}); NCCL ops (name, calls a step, host ms, "
+            f"device ms) {prof['nccl']}; host-heaviest ops {prof['cpu_top']}")
+    require(res["backend"] == "nccl" and res["world"] == 1 and res["mesh"] == {"data": 1},
+            "the sharded run joined NCCL at world 1 with the mesh {'data': 1}")
+    require(not res["plain_sharded"], "the runs without train.mesh run the plain step")
+    require(all(r["launches"] == want for r in runs.values()), "growth launches of each run")
+    require(d_sharded <= limit, "the sharded run restores as the plain run does")
+    return {"ms": mean, "d_sharded": d_sharded, "d_repeat": d_repeat, "profile": res["profile"]}
+
+
+def _scale_inputs(torch, seed: int):
+    """The full-width CDAN (Flax init) and a global batch B=16·256x384 with its
+    four keep masks, the same on every process (drawn on the card from
+    ``seed``)."""
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
+    from multi_degradation_image_enhancement_tpu_torch.models.torch_init import flax_default_init_
+
+    dev = torch.device("cuda")
+    model = flax_default_init_(CDAN(), torch.Generator().manual_seed(seed)).to(dev)
+    model.fused_dense = True
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((TRAIN_BATCH, *EVAL_HW, 3), device=dev, generator=gen)
+    t = torch.clamp(x + 0.1 * torch.randn(x.shape, device=dev, generator=gen), 0.0, 1.0)
+    masks = [torch.rand((TRAIN_BATCH, c, EVAL_HW[0] // p, EVAL_HW[1] // p), device=dev,
+                        generator=gen) < 0.8 for c, p in ((64, 2), (128, 4), (256, 8), (512, 8))]
+    return model, (x, t), masks
+
+
+def _scale_step(torch, model, batch, masks, mesh=None, fused=True):
+    """One fp32 ``make_train_step`` on a copy of ``model`` (sharded over
+    ``mesh`` when given): loss, gradients, running statistics, growth
+    launches, ms of the step (host clock around a synchronised step)."""
+    import copy
+
+    from multi_degradation_image_enhancement_tpu_torch.engine.model import make_train_step
+    from multi_degradation_image_enhancement_tpu_torch.engine.state import TrainState
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer_bwd, growth_layer_fwd,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.ops.losses import build_loss_pipeline
+    from multi_degradation_image_enhancement_tpu_torch.parallel.mesh import (
+        shard_batch, shard_train_step,
+    )
+
+    m = copy.deepcopy(model)
+    m.fused_dense = fused
+    state = TrainState.create(m, 1e-3)
+    step = make_train_step(build_loss_pipeline(_loss_config(), "cuda"), "fp32")
+    if mesh is not None:
+        step, batch = shard_train_step(step, mesh), shard_batch(batch, mesh)
+    torch.cuda.synchronize()
+    growth_layer_fwd.launches = growth_layer_bwd.launches = 0
+    t0 = time.perf_counter()
+    loss = step(state, *batch, masks, None)
+    torch.cuda.synchronize()
+    return {"loss": {k: float(v) for k, v in loss.items()},
+            "grads": {n: p.grad.detach().cpu() for n, p in m.named_parameters()},
+            "stats": {n: b.cpu() for n, b in m.named_buffers() if "running" in n},
+            "launches": (growth_layer_fwd.launches, growth_layer_bwd.launches),
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def worker_gloo_steps(torch, work: Path):
+    """Phase 32's ranks (two processes on the one card, ``gloo``): the fp32
+    fused train step on ``{"data": 2}`` and on ``{"spatial": 2}`` (each
+    twice: the first warms up), and the halo'd growth layer (#4/#5, #6/#7)
+    against its plain version on ``{"spatial": 2}``."""
+    import torch.distributed as dist
+
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer, growth_layer_plain, growth_layer_sharded,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.parallel import collectives, distributed
+    from multi_degradation_image_enhancement_tpu_torch.parallel.mesh import create_mesh
+
+    distributed.initialize(backend="gloo")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model, batch, masks = _scale_inputs(torch, 32)
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(), "steps": {}}
+    for axes in ({"data": 2}, {"spatial": 2}):
+        mesh = create_mesh(axes)
+        _scale_step(torch, model, batch, masks, mesh)  # warm-up
+        for fused in (True, False):
+            out["steps"][(json.dumps(axes), fused)] = _scale_step(torch, model, batch, masks, mesh,
+                                                                  fused)
+    mesh = create_mesh({"spatial": 2})
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for c in (64, 112):  # dense1's first and last growth layer, B=16 at 128x192
+        inp = _growth_inputs(torch, TRAIN_BATCH, c, 128, 192, gen)
+        with collectives.use_mesh(mesh):
+            local = list(inp)  # x and the cotangent r: this rank's rows
+            local[0], local[-1] = (collectives.local_slice(t, 2).contiguous()
+                                   for t in (inp[0], inp[-1]))
+            g, grads = _growth_run(torch, lambda *a: growth_layer_sharded(growth_layer, *a),
+                                   *local)
+            g_ref, ref = _growth_run(torch, lambda *a: growth_layer_sharded(growth_layer_plain, *a),
+                                     *local)
+        torch.cuda.synchronize()
+        worst["fwd"] = max(worst["fwd"], (g - g_ref).abs().max().item())
+        for got, want in zip(grads, ref):
+            rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1.0)
+            worst["bwd"] = max(worst["bwd"], rel)
+    out["growth_halo"] = worst
+    torch.save(out, work / f"rank{dist.get_rank()}.pt")
+
+
+def _leaf_distance(got, want, dust):
+    """Each leaf's relative L2 distance ||got - want|| / ||want|| outside
+    ``dust``, and the largest |got - want| over ``dust``."""
+    return ({n: ((got[n] - g).norm() / g.norm()).item() for n, g in want.items()
+             if n not in dust},
+            max((got[n] - want[n]).abs().max().item() for n in dust))
+
+
+SCALE_SHUFFLES = 4  # phase 32's yardstick: the batch reversed, its halves swapped, 4 shuffles
+
+
+def _batch_orders(torch):
+    """The global batch's reorderings of phase 32's yardstick."""
+    n = TRAIN_BATCH
+    return [torch.arange(n - 1, -1, -1), torch.arange(n).roll(n // 2),
+            *(torch.randperm(n, generator=torch.Generator().manual_seed(32 + i))
+              for i in range(SCALE_SHUFFLES))]
+
+
+def phase_gloo_steps(torch, smi):
+    """Phase 32: two ranks on the one card over ``gloo``.  The full-width
+    CDAN train step at B=16·256x384, fp32, cuDNN deterministic, on
+    ``{"data": 2}`` and on ``{"spatial": 2}``, with fused and with canonical
+    DenseBlocks, against the one-process step on the same weights, batch
+    and dropout masks.  Each gradient leaf's relative L2 distance is held
+    to twice its own plain-vs-plain distance (never below one fp32 unit),
+    measured here: the largest distance of the one-process step from its
+    exact repeat and from itself on the batch reordered six ways (a sharded
+    step takes the same sums in another order; a leaf whose gradient
+    cancels to a few 1e-5 of the others moves by percents under any
+    reordering, where the exact repeat moves it by 1e-4 or less, PERF.md
+    section 6; an L2 distance, unlike a largest element's, is steady from
+    one reordering to the next).  The 24 BatchNorm-fed conv biases,
+    zero in exact arithmetic, are held absolutely to twice their largest
+    distance.  The loss and the running statistics are held to twice their
+    worst distance, never tighter than tests/test_parallel.py holds JAX's
+    sharded CDAN step (1e-4 relative, 1e-5 of the largest).  Every leaf's
+    reading is printed beside its limit.  16/16 growth launches a rank in
+    the fused step; the halo'd growth layer's kernels against its plain
+    version on each rank (phase 8's tolerances)."""
+    import shutil
+
+    work = Path("build") / "chip_smoke_scale" / "gloo"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    _, seconds = torchrun(2, ["gloo_steps", work])
+    ranks = [torch.load(work / f"rank{r}.pt") for r in range(2)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, batch, masks = _scale_inputs(torch, 32)
+        orders = [o.cuda() for o in _batch_orders(torch)]
+        ref = {fused: [_scale_step(torch, model, batch, masks, None, fused) for _ in range(2)]
+               + [_scale_step(torch, model, [t[o] for t in batch], [m[o] for m in masks], None,
+                              fused) for o in orders]
+               for fused in (True, False)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    dust = _bn_fed_biases(model)
+    unit = 2.0 ** -23  # one fp32 unit
+    failed, records = [], {}
+    for fused in (True, False):
+        kind = "fused" if fused else "canonical"
+        plain, others = ref[fused][0], ref[fused][1:]
+        scale = {n: g.abs().max().item() for n, g in plain["grads"].items()}
+        # the card's plain-vs-plain distance, per leaf: the largest over the
+        # exact repeat and the six reordered batches
+        dist, dust_dist, loss_dist, stats_dist = {}, 0.0, 0.0, 0.0
+        for other in others:
+            leaves, dust_err = _leaf_distance(other["grads"], plain["grads"], dust)
+            for n, v in leaves.items():
+                dist[n] = max(dist.get(n, 0.0), v)
+            dust_dist = max(dust_dist, dust_err)
+            loss_dist = max(loss_dist, *(abs(other["loss"][k] - v) / abs(v)
+                                         for k, v in plain["loss"].items()))
+            stats_dist = max(stats_dist, *(((other["stats"][n] - st).abs().max()
+                                            / st.abs().max()).item()
+                                           for n, st in plain["stats"].items()))
+        limit = {n: 2.0 * max(d, unit) for n, d in dist.items()}
+        say("scale", f"[{smi}] phase 32 one-process {kind} step against its repeat and "
+            f"against itself on the batch reversed, its halves swapped and {SCALE_SHUFFLES} "
+            f"shuffles (the yardstick): gradient leaves' relative L2 distance "
+            f"{min(dist.values()):.3e}-{max(dist.values()):.3e}, "
+            f"BatchNorm-fed biases {dust_dist:.3e}, loss rel {loss_dist:.3e}, running "
+            f"statistics rel {stats_dist:.3e}")
+        readings = {}
+        for axes in ('{"data": 2}', '{"spatial": 2}'):
+            for r, res in enumerate(ranks):
+                got = res["steps"][(axes, fused)]
+                leaves, dust_err = _leaf_distance(got["grads"], plain["grads"], dust)
+                readings[(axes, r)] = leaves
+                over = [n for n, v in leaves.items() if v > limit[n]]
+                ratio, leaf = max((v / limit[n], n) for n, v in leaves.items())
+                loss_rel = max(abs(got["loss"][k] - v) / abs(v) for k, v in plain["loss"].items())
+                stats_rel = max(((got["stats"][n] - st).abs().max() / st.abs().max()).item()
+                                for n, st in plain["stats"].items())
+                loss_limit, stats_limit = max(2.0 * loss_dist, 1e-4), max(2.0 * stats_dist, 1e-5)
+                say("scale", f"[{smi}] phase 32 {res['backend']} world {res['world']} mesh {axes} "
+                    f"{kind} rank {r}: loss rel {loss_rel:.3e} (limit {loss_limit:.3e}); "
+                    f"gradient leaves over their limit {len(over)} of {len(leaves)}, nearest "
+                    f"{leaf} relative L2 {leaves[leaf]:.3e} (limit {limit[leaf]:.3e}, largest "
+                    f"{scale[leaf]:.2e}); BatchNorm-fed biases {dust_err:.3e} (limit "
+                    f"{2.0 * dust_dist:.3e}); running statistics rel {stats_rel:.3e} (limit "
+                    f"{stats_limit:.3e}); growth launches {got['launches']}; step "
+                    f"{got['ms']:.1f} ms (two ranks sharing one card)")
+                checks = [(loss_rel <= loss_limit, "the loss"),
+                          (not over, f"the gradient leaves {over}"),
+                          (dust_err <= 2.0 * dust_dist, "the BatchNorm-fed biases"),
+                          (stats_rel <= stats_limit, "the running statistics (sync-BN)"),
+                          (got["launches"] == ((16, 16) if fused else (0, 0)), "growth launches")]
+                failed += [f"{axes} {kind} rank {r}: {what} within twice the card's "
+                           "plain-vs-plain distance" for ok, what in checks if not ok]
+                records[(axes, fused, r)] = got["ms"]
+        for n in sorted(limit, key=lambda n: -scale[n]):
+            cols = ", ".join(f"{json.loads(a)} rank {r} {v[n]:.3e}"
+                             for (a, r), v in readings.items())
+            say("scale", f"phase 32 {kind} leaf {n} (largest {scale[n]:.2e}): relative L2 "
+                f"limit {limit[n]:.3e}; {cols}")
+    halo = ranks[0]["growth_halo"], ranks[1]["growth_halo"]
+    say("scale", f"[{smi}] phase 32: halo'd growth layer kernels vs plain, spatial 2, B=16 "
+        f"128x192 c=64/112: fwd max {[h['fwd'] for h in halo]} (limit 5e-2), bwd "
+        f"err/max(scale,1) {[h['bwd'] for h in halo]} (limit 2e-2); one-process step fused "
+        f"{ref[True][1]['ms']:.1f} ms, canonical {ref[False][1]['ms']:.1f} ms; torchrun "
+        f"{seconds:.1f} s")
+    require(all(h["fwd"] <= 5e-2 and h["bwd"] <= 2e-2 for h in halo),
+            "the halo'd growth kernels hold against their plain version")
+    require(not failed, "; ".join(failed))
+    return {"ms": records, "plain_ms": {k: v[1]["ms"] for k, v in ref.items()}}
+
+
+def worker_router(torch, work: Path):
+    """Phase 33's ranks for the padded bank: phase 24's first three experts
+    on ``{"expert": 2}`` (n_pad 1), top1, the routed server's first batch."""
+    import torch.distributed as dist
+
+    from multi_degradation_image_enhancement_tpu_torch.parallel import distributed
+    from multi_degradation_image_enhancement_tpu_torch.parallel.mesh import create_mesh
+    from multi_degradation_image_enhancement_tpu_torch.pipeline import (
+        RoutedRestorer, expert_block, load_expert_bank,
+    )
+
+    distributed.initialize(backend="gloo")
+    data = torch.load(work / "inputs.pt")
+    mesh = create_mesh({"expert": 2})
+    paths = data["paths"]
+    names, forwards = load_expert_bank(paths, "cuda", torch.bfloat16,
+                                       only=expert_block(len(paths), mesh))
+    router = RoutedRestorer(forwards, names, mesh=mesh)
+    with torch.inference_mode():
+        out = router(data["images"].cuda(), data["probs"].cuda(), [0.5] * len(names))
+    torch.save({"out": out.cpu(), "n_pad": router.n_pad, "owned": list(router.owned),
+                "backend": dist.get_backend()}, work / f"rank{dist.get_rank()}.pt")
+
+
+def worker_expert_cli(torch, out: Path, *argv: str):
+    """Phase 33's ranks for the CLI: join the process group over ``gloo``
+    (three ranks share the one card; NCCL refuses two ranks on one device),
+    then ``run_pipeline.main`` with ``argv`` and ``--out out``, which keeps
+    the group it finds."""
+    from multi_degradation_image_enhancement_tpu_torch import run_pipeline
+    from multi_degradation_image_enhancement_tpu_torch.parallel import distributed
+
+    distributed.initialize(backend="gloo")
+    run_pipeline.main([*argv, "--out", str(out)])
+
+
+def phase_expert_parallel(torch, smi, art):
+    """Phase 33: the expert-parallel server.  ``run_pipeline --expert-mesh 3``
+    under ``torchrun --nproc_per_node 3`` (three ranks sharing the one card
+    over ``gloo``: NCCL refuses two ranks on one device) on phase 24's
+    64 PNGs and nine experts, top1 and sequential ``severity``: its PNGs
+    within 1 LSB of phase 24's one-process CLI's, its probs.jsonl the same,
+    written by rank 0 alone; ``--expert-mesh 2`` refused (2 does not divide
+    9) before any process group.  Then a 2-rank ``RoutedRestorer`` on three
+    experts (n_pad 1) against the unsharded router.  Times are of ranks
+    sharing one card, not scaling."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from multi_degradation_image_enhancement_tpu_torch import run_pipeline
+    from multi_degradation_image_enhancement_tpu_torch.pipeline import (
+        RoutedRestorer, load_expert_bank,
+    )
+
+    work = Path("build") / "chip_smoke_scale" / "expert"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    pipe_dir = Path("build") / "chip_smoke_pipeline"
+    base = ["--images", art["images"], "--classifier", art["classifier"], "--weights-dir",
+            art["weights"], "--batch", PIPE_BATCH, "--input-hw", *EVAL_HW, "--save-probs"]
+    try:
+        run_pipeline.main([str(a) for a in base] + ["--out", str(work / "refused"),
+                                                    "--expert-mesh", "2"])
+        refused = "not refused"
+    except ValueError as e:
+        refused = str(e)
+    say("scale", f"phase 33: --expert-mesh 2 with 9 experts: {refused}")
+    require("does not divide the 9 loaded experts" in refused, "--expert-mesh 2 is refused")
+    records = {}
+    for mode, ordering in (("top1", "fixed"), ("sequential", "severity")):
+        out = work / mode
+        stdout, seconds = torchrun(3, ["expert_cli", out, *base, "--mode", mode, "--ordering",
+                                       ordering, "--expert-mesh", 3])
+        ref = pipe_dir / f"main_{mode}"
+        worst = 0
+        for f in art["files"]:
+            png = f.rsplit(".", 1)[0] + ".png"
+            a = np.asarray(Image.open(out / png), dtype=np.int16)
+            b = np.asarray(Image.open(ref / png), dtype=np.int16)
+            worst = max(worst, int(np.abs(a - b).max()))
+        rows = [[json.loads(line) for line in (d / "probs.jsonl").read_text().splitlines()]
+                for d in (out, ref)]
+        probs_err = max(abs(a["probs"][k] - b["probs"][k]) for a, b in zip(*rows)
+                        for k in a["probs"])
+        oks = stdout.count("[OK] restored")
+        say("scale", f"[{smi}] phase 33 {mode}/{ordering}: gloo world 3, mesh {{'expert': 3}}, "
+            f"{len(art['files'])} PNGs B={PIPE_BATCH} in {seconds:.1f} s (torchrun, three ranks "
+            f"sharing one card); vs phase 24's one-process CLI max |d| {worst} LSB (limit 1), "
+            f"probs max |d| {probs_err:.2e}; '[OK]' lines {oks}")
+        require([a["file"] for a in rows[0]] == [b["file"] for b in rows[1]],
+                "one probs row per image, in order")
+        require(len(list(out.glob("*.png"))) == len(art["files"]), "one PNG per image")
+        require(worst <= 1, "expert-parallel PNGs within 1 LSB of the one-process CLI's")
+        require(oks == 1, "rank 0 alone reports and writes")
+        records[mode] = seconds
+
+    names = ["noise", "blur", "low_light"]
+    paths = {n: str(art["weights"] / f"CDAN_{n}.pt") for n in names}
+    images = torch.rand((8, *EVAL_HW, 3), generator=torch.Generator().manual_seed(33))
+    probs = torch.full((8, 3), 0.1)
+    for i in range(8):
+        probs[i, i % 3] = 0.9
+    probs[7] = 0.1  # clean
+    torch.save({"paths": paths, "images": images, "probs": probs}, work / "inputs.pt")
+    _, seconds = torchrun(2, ["router", work])
+    ranks = [torch.load(work / f"rank{r}.pt") for r in range(2)]
+    names_, forwards = load_expert_bank(paths, "cuda", torch.bfloat16)
+    with torch.inference_mode():
+        want = RoutedRestorer(forwards, names_)(images.cuda(), probs.cuda(), [0.5] * 3).cpu()
+    errs = [(r["out"] - want).abs().max().item() for r in ranks]
+    say("scale", f"[{smi}] phase 33 router: {ranks[0]['backend']} world 2, mesh {{'expert': 2}}, "
+        f"3 experts: n_pad {[r['n_pad'] for r in ranks]}, blocks {[r['owned'] for r in ranks]}, "
+        f"vs the unsharded router max |d| {errs} (limit 1/255); torchrun {seconds:.1f} s")
+    require([r["n_pad"] for r in ranks] == [1, 1] and [r["owned"] for r in ranks] == [[0, 1], [2]],
+            "the padded bank's blocks")
+    require(max(errs) <= 1.0 / 255.0, "the 2-rank router restores as the unsharded one")
+    return records
+
+
+WORKERS = {"nccl_train": worker_nccl_train, "gloo_steps": worker_gloo_steps,
+           "router": worker_router, "expert_cli": worker_expert_cli}
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--worker":  # a rank of phases 31-33
+        WORKERS[sys.argv[2]](torch, Path(sys.argv[3]), *sys.argv[4:])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2462,6 +2998,9 @@ def main() -> int:
         phase_dir_config(torch, smi)
     phase_remat(torch, smi)
     phase_train_options(torch, smi)
+    phase_nccl_world1(torch, smi)
+    phase_gloo_steps(torch, smi)
+    phase_expert_parallel(torch, smi, pipe_records["art"])
 
     src = f"{PKG}/csrc"
     ref = "multi_degradation_image_enhancement_tpu/ops/pallas"

@@ -1,3 +1,5 @@
 """PyTorch / CUDA port of multi_degradation_image_enhancement_tpu for NVIDIA Hopper."""
 
-__version__ = "0.1.0"
+from multi_degradation_image_enhancement_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -648,13 +648,12 @@ int mdie_growth_bwd(const void* x, const void* dg, int batch, int c, int h, int 
   if (!shape_ok(batch, c, h, w)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdGrid g = bwd_grid(batch, c, h, w);
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        growth_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gt::kBSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
-  }
+  // Set on every call: the attribute belongs to the current device, and a
+  // process may launch on several (one set per process would leave cuda:1 and
+  // up at the 48 KB default).
+  const cudaError_t set = cudaFuncSetAttribute(
+      growth_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gt::kBSmem);
+  if (set != cudaSuccess) return static_cast<int>(set);
   auto* part = static_cast<float*>(scratch);
   growth_bwd_kernel<<<dim3(g.n_groups, g.chunks), gt::kThreads, gt::kBSmem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(dg), c, g.c_pad, h, w, g.tiles_w,

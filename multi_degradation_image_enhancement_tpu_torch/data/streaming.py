@@ -37,6 +37,7 @@ def stream_restore(
     run_batch: Callable[[np.ndarray], Tuple[np.ndarray, Optional[np.ndarray]]],
     io_threads: int = 4,
     progress: Optional[Callable[[int, int], None]] = None,
+    write: bool = True,
 ) -> List[Tuple[str, Optional[np.ndarray]]]:
     """Run ``run_batch`` over a directory with overlapped decode and write.
 
@@ -45,9 +46,11 @@ def stream_restore(
     ``io_threads`` writers.  Returns ``[(filename, aux_row), ...]`` in input
     order.  A decode error reaches the caller (it is raised here) instead of
     leaving the loop waiting; the first writer failure is raised after the
-    loop drains.
+    loop drains.  ``write=False`` runs every batch and writes nothing (an
+    expert-parallel rank other than the primary).
     """
-    os.makedirs(out_dir, exist_ok=True)
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
     feed: "queue.Queue" = queue.Queue(maxsize=2)
 
     def producer() -> None:
@@ -82,7 +85,9 @@ def stream_restore(
             restored, aux = run_batch(imgs)
             for j, fname in enumerate(chunk):
                 stem = os.path.splitext(fname)[0]
-                pending.append(writers.submit(save_png, restored[j], os.path.join(out_dir, f"{stem}.png")))
+                if write:
+                    pending.append(writers.submit(save_png, restored[j],
+                                                  os.path.join(out_dir, f"{stem}.png")))
                 results.append((fname, aux[j] if aux is not None else None))
             done += len(chunk)
             if progress is not None:

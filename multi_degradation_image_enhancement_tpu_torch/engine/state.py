@@ -25,6 +25,9 @@ from dataclasses import dataclass
 from typing import Any, Callable, List, Optional
 
 import torch
+import torch.distributed as dist
+
+from multi_degradation_image_enhancement_tpu_torch.parallel import collectives
 
 Schedule = Callable[[int], float]
 
@@ -89,6 +92,16 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
     return norm
 
 
+@torch.no_grad()
+def all_reduce_grads_(grads: List[torch.Tensor], group) -> None:
+    """Sum each gradient over ``group``'s ranks in place, as one bucket: one
+    all-reduce of the flattened gradients, then the sums copied back."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    sums = flat.split([g.numel() for g in grads])
+    torch._foreach_copy_(grads, [t.view_as(g) for t, g in zip(sums, grads)])
+
+
 @dataclass
 class TrainState:
     model: torch.nn.Module
@@ -104,10 +117,22 @@ class TrainState:
                    schedule=schedule, grad_clip=float(grad_clip) if grad_clip else None)
 
     def apply_gradients(self) -> None:
-        """One update from the gradients in ``.grad``: clip, set the
-        scheduled learning rate, Adam; ``step`` counts it."""
+        """One update from the gradients in ``.grad``: under a mesh their sum
+        over its ranks, then clip, set the scheduled learning rate, Adam;
+        ``step`` counts it.
+
+        Under a mesh each rank's loss is its share of the global loss, so the
+        global gradient is the sum of the ranks' (``parallel.collectives``):
+        one bucketed all-reduce after ``backward()``, before clipping sees
+        the global norm.  Not ``DistributedDataParallel``: its reducer
+        averages, overlaps buckets with a backward that here already
+        exchanges halos and statistics in autograd's order, and would have to
+        be told to leave the buffers alone (sync-BN keeps them equal)."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        group = collectives.grad_group()
+        if group is not None and grads:
+            all_reduce_grads_(grads, group)
         if self.grad_clip:
-            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
             clip_by_global_norm_(grads, self.grad_clip)
         if self.schedule is not None:
             lr = self.schedule(self.step)

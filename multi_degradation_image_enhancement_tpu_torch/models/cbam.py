@@ -8,7 +8,9 @@ Only what CDAN uses is ported: avg + max pools and the spatial gate always
 on.  The ``lp`` / ``lse`` pool variants and ``no_spatial`` are listed in
 ROADMAP.md.  The spatial gate's BatchNorm follows Flax in train and refresh
 mode (``models.norm.BatchNorm2d``: biased running variance, Flax momentum 0.99
-= torch momentum 0.01, ``cbam.py:29-62``).
+= torch momentum 0.01, ``cbam.py:29-62``).  On an H shard (the ``spatial``
+mesh axis) the channel gate pools over the whole image and the 7×7 conv
+reads three halo rows each side (``models.halo``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from multi_degradation_image_enhancement_tpu_torch.models.halo import conv_same
 from multi_degradation_image_enhancement_tpu_torch.models.norm import BatchNorm2d, Rematerialized
+from multi_degradation_image_enhancement_tpu_torch.parallel import collectives
 
 
 class BasicConv(nn.Module):
@@ -31,7 +35,7 @@ class BasicConv(nn.Module):
         self.bn = BatchNorm2d(out_planes, eps=1e-5, momentum=0.01)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(self.conv(x))
+        return self.bn(conv_same(self.conv, x))
 
 
 class ChannelGate(nn.Module):
@@ -48,7 +52,12 @@ class ChannelGate(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        att = self.mlp(x.mean(dim=(2, 3))) + self.mlp(x.amax(dim=(2, 3)))
+        shards = collectives.spatial_shards()
+        if shards == 1:
+            avg = x.mean(dim=(2, 3))
+        else:  # the whole image's mean and max across the spatial axis
+            avg = collectives.spatial_sum(x.mean(dim=(2, 3)) * (1.0 / shards))
+        att = self.mlp(avg) + self.mlp(collectives.spatial_amax(x, (2, 3)))
         return x * torch.sigmoid(att)[:, :, None, None]
 
 

@@ -27,6 +27,13 @@ package; the variable tree is the same either way.  Compute precision follows
 ``torch.autocast`` (convs, linears and the transition product in bf16 under a
 bf16 autocast), while every BatchNorm in train or refresh mode runs in f32.
 
+Under a mesh (``parallel.mesh.shard_train_step``) the same modules run on
+a rank's shard: BatchNorm is sync-BN (``models.norm.channel_stats``), and
+with a ``spatial`` axis the convs, deconvs and upsamples exchange halo rows
+(``models.halo``), CBAM pools over the whole image, the growth layers take
+halo rows of their raw input (``growth_layer_sharded``) and dropout keeps
+its slice of the global mask.
+
 ``model.remat = True`` (``train.remat``) rematerialises every ConvBlock,
 DenseBlock (``final_dense`` included) and CBAM (the bottleneck included),
 the set the JAX package wraps in ``nn.checkpoint`` (``cdan.py:249-263``):
@@ -40,26 +47,30 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from multi_degradation_image_enhancement_tpu_torch.models.cbam import CBAM
+from multi_degradation_image_enhancement_tpu_torch.models.halo import (
+    bilinear_x2,
+    check_local_height,
+    conv_same,
+    conv_transpose_same,
+)
 from multi_degradation_image_enhancement_tpu_torch.models.norm import (
     BatchNorm2d,
     Rematerialized,
     channel_stats,
 )
-from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import growth_layer
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+    growth_layer,
+    growth_layer_sharded,
+)
+from multi_degradation_image_enhancement_tpu_torch.parallel import collectives
 
 DROP_RATE = 0.2
 # A dropout source: None (the global RNG), a torch.Generator on the
 # activations' device, or the four keep masks (bool, NCHW) in encoder order.
 Dropout = Union[None, torch.Generator, Sequence[torch.Tensor]]
-
-
-def _bilinear_x2(x: torch.Tensor) -> torch.Tensor:
-    """×2 half-pixel bilinear upsample (``jax.image.resize`` bilinear)."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
 
 
 def dropout_keep_mask(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -81,7 +92,7 @@ class ConvBlock(Rematerialized):
         self.bn = BatchNorm2d(out_channels)
 
     def block_forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(self.conv(x)))
+        return torch.relu(self.bn(conv_same(self.conv, x)))
 
 
 class DenseBlock(Rematerialized):
@@ -122,8 +133,8 @@ class DenseBlock(Rematerialized):
         if self.fused and self.growth_rate == 16:
             return self._fused_forward(x)
         feats = x
-        for layer in self.layers:
-            feats = torch.cat([feats, layer(feats)], dim=1)
+        for bn, relu, conv in self.layers:
+            feats = torch.cat([feats, conv_same(conv, relu(bn(feats)))], dim=1)
         return self.transition_layer(feats)
 
     def _affine(self, bn: BatchNorm2d, mus, variances, norm: bool):
@@ -148,7 +159,7 @@ class DenseBlock(Rematerialized):
         for layer in self.layers:
             bn, conv = layer[0], layer[2]
             a, b = self._affine(bn, mus, variances, norm)
-            g = self.growth_fn(feats, a, b, conv.weight, conv.bias)
+            g = growth_layer_sharded(self.growth_fn, feats, a, b, conv.weight, conv.bias)
             if norm:
                 mu, var = channel_stats(g)
                 mus.append(mu)
@@ -178,13 +189,16 @@ class Encoder(nn.Module):
         self.pool = nn.MaxPool2d(2, 2)
 
     def _drop(self, x: torch.Tensor, i: int, dropout: Dropout) -> torch.Tensor:
+        """Under a mesh the keep mask is drawn (or given) at the global
+        batch's shape and each rank keeps its slice: the masks of a sharded
+        step are the single-device step's, bit for bit."""
         if not self.training:
             return x
         if dropout is None or isinstance(dropout, torch.Generator):
-            keep = dropout_keep_mask(x.shape, dropout, x.device)
+            keep = dropout_keep_mask(collectives.global_shape(x.shape, 2), dropout, x.device)
         else:
             keep = dropout[i]
-        return apply_dropout(x, keep)
+        return apply_dropout(x, collectives.local_slice(keep, 2))
 
     def forward(self, x: torch.Tensor, dropout: Dropout = None):
         skips, denses = [], []
@@ -217,16 +231,16 @@ class Decoder(nn.Module):
         self.final_dense = DenseBlock(3, growth_rate)
 
     def _deconv(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        return torch.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+        return torch.relu(getattr(self, f"bn{i}")(conv_transpose_same(getattr(self, f"conv{i}"), x)))
 
     def forward(self, x, out, skips, denses):
         out = self.cbam1(self._deconv(out, 1) + skips[2])
         out = out * denses[2]
-        out = self.cbam2(_bilinear_x2(self._deconv(out, 2)) + skips[1])
+        out = self.cbam2(bilinear_x2(self._deconv(out, 2)) + skips[1])
         out = out * denses[1]
-        out = self.cbam3(_bilinear_x2(self._deconv(out, 3)) + skips[0])
+        out = self.cbam3(bilinear_x2(self._deconv(out, 3)) + skips[0])
         out = out * denses[0]
-        out = _bilinear_x2(self._deconv(out, 4)) + x  # global residual
+        out = bilinear_x2(self._deconv(out, 4)) + x  # global residual
         return torch.sigmoid(self.final_dense(out))
 
 
@@ -273,7 +287,9 @@ class CDAN(nn.Module):
                 m.stats_refresh = bool(value)
 
     def forward(self, x_nhwc: torch.Tensor, dropout: Dropout = None) -> torch.Tensor:
-        """``dropout`` is read in train mode only (see :data:`Dropout`)."""
+        """``dropout`` is read in train mode only (see :data:`Dropout`).
+        Under a mesh's ``spatial`` axis ``x_nhwc`` is this rank's H shard."""
+        check_local_height(x_nhwc.shape[1])
         x = x_nhwc.permute(0, 3, 1, 2)
         out, skips, denses = self.encoder(x, dropout)
         out = self.bottleneck(out)

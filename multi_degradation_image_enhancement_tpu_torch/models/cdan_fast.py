@@ -45,7 +45,8 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN, _bilinear_x2
+from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
+from multi_degradation_image_enhancement_tpu_torch.models.halo import bilinear_x2
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
     conv3x3,
     conv3x3_pool,
@@ -153,11 +154,11 @@ def build_fast_apply(
 
         out = cbams["cbam1"](conv_relu(out, "de1") + skip2)
         out = out * d3
-        out = cbams["cbam2"](_bilinear_x2(conv_relu(out, "de2")) + skip1)
+        out = cbams["cbam2"](bilinear_x2(conv_relu(out, "de2")) + skip1)
         out = out * d2
-        out = cbams["cbam3"](_bilinear_x2(conv_relu(out, "de3")) + skip0)
+        out = cbams["cbam3"](bilinear_x2(conv_relu(out, "de3")) + skip0)
         out = out * d1
-        out = _bilinear_x2(conv_relu(out, "de4")) + x  # de4 keeps its ReLU; global residual
+        out = bilinear_x2(conv_relu(out, "de4")) + x  # de4 keeps its ReLU; global residual
         out = torch.sigmoid(dense_block(out.contiguous(), packs["final_dense"]))
         return out.permute(0, 2, 3, 1).float()
 
@@ -217,7 +218,7 @@ def _maxpool2x2_cm(x: torch.Tensor) -> torch.Tensor:
 
 
 # ×2 half-pixel bilinear upsample (``cdan_fast.py:260``), the module's own.
-_upsample_x2_cm = _bilinear_x2
+_upsample_x2_cm = bilinear_x2
 
 
 @torch.no_grad()

@@ -20,7 +20,9 @@ and refresh mode.  In eval mode it is ``torch.nn.BatchNorm2d``.
 the block's forward runs through ``torch.utils.checkpoint`` and is computed
 again in the backward.  The recomputation leaves every running average of
 the block alone, as Flax's checkpoint does, so a rematerialised step ends
-with the same statistics as a plain one.
+with the same statistics as a plain one; under a mesh it reduces the batch
+statistics again (every rank recomputes the same blocks in the same order)
+and updates nothing.
 """
 
 from __future__ import annotations
@@ -32,13 +34,23 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from multi_degradation_image_enhancement_tpu_torch.parallel import collectives
+
 
 def channel_stats(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (mean, biased var) of NCHW ``t`` in f32: E[x²] − E[x]²,
-    negatives clipped (``_channel_stats``, ``models/cdan.py:105-111``)."""
+    negatives clipped (``_channel_stats``, ``models/cdan.py:105-111``).
+
+    Under a mesh with process groups (``parallel.collectives``) this is
+    sync-BN: E[x] and E[x²] over the global batch, the ranks' equal-sized
+    shards' means averaged by one differentiable all-reduce over ``data`` ×
+    ``spatial`` (at one rank the plain path, bit for bit)."""
     tf = t.float()
     mu = tf.mean(dim=(0, 2, 3))
     mu2 = (tf * tf).mean(dim=(0, 2, 3))
+    shards = collectives.bn_shards()
+    if shards:
+        mu, mu2 = collectives.bn_sum(torch.stack([mu, mu2]) * (1.0 / shards)).unbind(0)
     return mu, torch.clamp(mu2 - mu * mu, min=0.0)
 
 

@@ -185,6 +185,15 @@ def require_batch(batch: int, name: str) -> None:
         raise ValueError(f"{name}: batch {batch} outside 1..{MAX_GRID_YZ}")
 
 
+def on_device(t):
+    """The context a launch runs in: ``t``'s card made current, so a kernel of
+    a process that drives several cards (or a rank on ``cuda:1`` and up)
+    launches where its tensors are, on that card's current stream."""
+    import torch
+
+    return torch.cuda.device(t.device)
+
+
 def stream_of(t) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s device."""
     import torch

@@ -232,11 +232,12 @@ def conv3x3(x: torch.Tensor, pack: ConvPack, relu: bool = True) -> torch.Tensor:
     bsz, c_in, h, w = x.shape
     xt = torch.empty((bsz, h, w, _round_up(c_in, 8)), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((bsz, pack.c_out, h, w), dtype=x.dtype, device=x.device)
-    err = _build.load().mdie_conv3x3(
-        x.data_ptr(), int(x.dtype == torch.float32), bsz, c_in, h, w, xt.data_ptr(),
-        pack.w_packed.data_ptr(), c_in_pad, c_out_pad, pack.bias.data_ptr(), pack.c_out,
-        int(relu), out.data_ptr(), _build.stream_of(x),
-    )
+    with _build.on_device(x):
+        err = _build.load().mdie_conv3x3(
+            x.data_ptr(), int(x.dtype == torch.float32), bsz, c_in, h, w, xt.data_ptr(),
+            pack.w_packed.data_ptr(), c_in_pad, c_out_pad, pack.bias.data_ptr(), pack.c_out,
+            int(relu), out.data_ptr(), _build.stream_of(x),
+        )
     _build.check(err, "conv3x3")
     conv3x3.launches += 1
     return out
@@ -259,11 +260,12 @@ def conv3x3_pool(x: torch.Tensor, pack: ConvPack) -> torch.Tensor:
     c_out_pad, k_pad = _round_up(pack.c_out, C_OUT_ALIGN), pool_k_pad(c_in)
     _build.require(pack.w_pool, "w_pool", torch.bfloat16, (c_out_pad, k_pad))
     out = torch.empty((bsz, pack.c_out, h // 2, w // 2), dtype=x.dtype, device=x.device)
-    err = _build.load().mdie_conv3x3_pool(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), bsz, c_in, h, w, pack.w_pool.data_ptr(),
-        k_pad, c_out_pad, pack.bias.data_ptr(), pack.c_out, out.data_ptr(),
-        pool_tile_cols_log2(w // 2), _build.stream_of(x),
-    )
+    with _build.on_device(x):
+        err = _build.load().mdie_conv3x3_pool(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), bsz, c_in, h, w,
+            pack.w_pool.data_ptr(), k_pad, c_out_pad, pack.bias.data_ptr(), pack.c_out,
+            out.data_ptr(), pool_tile_cols_log2(w // 2), _build.stream_of(x),
+        )
     _build.check(err, "conv3x3_pool")
     conv3x3_pool.launches += 1
     return out

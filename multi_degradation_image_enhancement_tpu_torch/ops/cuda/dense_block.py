@@ -276,27 +276,28 @@ def _dense_block_cuda(x: torch.Tensor, pack: DenseBlockPack, nhwc: bool) -> torc
     lib = _build.load()
     stream = _build.stream_of(x)
     feats = torch.empty((bsz, h, w, c_buf), dtype=torch.bfloat16, device=x.device)
-    err = lib.mdie_db_entry(x.data_ptr(), int(x.dtype == torch.float32), int(nhwc), bsz, c_in, h,
-                            w, pack.c_in_pad, feats.data_ptr(), c_buf, stream)
-    _build.check(err, "dense_block entry pass")
-    dense_block.launches += 1
-    for i in range(pack.num_layers):
-        ci = pack.c_in_pad + g_pad * i
-        err = lib.mdie_db_growth(
-            feats.data_ptr(), bsz, h, w, c_buf, ci, _round_up(ci, K_CHUNK),
-            pack.ak[i].data_ptr(), pack.bk[i].data_ptr(), pack.wk[i].data_ptr(),
-            pack.biask[i].data_ptr(), g_pad, stream,
-        )
-        _build.check(err, f"dense_block growth layer {i}")
-        dense_block.launches += 1
     shape = (bsz, h, w, pack.c_out) if nhwc else (bsz, pack.c_out, h, w)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    err = lib.mdie_db_transition(
-        feats.data_ptr(), bsz, h, w, c_buf, kt_pad, pack.atk.data_ptr(), pack.btk.data_ptr(),
-        pack.wtk.data_ptr(), pack.biastk.data_ptr(), pack.n_pad, pack.c_out, out.data_ptr(),
-        int(x.dtype == torch.bfloat16), int(nhwc), stream,
-    )
-    _build.check(err, "dense_block transition")
+    with _build.on_device(x):
+        err = lib.mdie_db_entry(x.data_ptr(), int(x.dtype == torch.float32), int(nhwc), bsz,
+                                c_in, h, w, pack.c_in_pad, feats.data_ptr(), c_buf, stream)
+        _build.check(err, "dense_block entry pass")
+        dense_block.launches += 1
+        for i in range(pack.num_layers):
+            ci = pack.c_in_pad + g_pad * i
+            err = lib.mdie_db_growth(
+                feats.data_ptr(), bsz, h, w, c_buf, ci, _round_up(ci, K_CHUNK),
+                pack.ak[i].data_ptr(), pack.bk[i].data_ptr(), pack.wk[i].data_ptr(),
+                pack.biask[i].data_ptr(), g_pad, stream,
+            )
+            _build.check(err, f"dense_block growth layer {i}")
+            dense_block.launches += 1
+        err = lib.mdie_db_transition(
+            feats.data_ptr(), bsz, h, w, c_buf, kt_pad, pack.atk.data_ptr(), pack.btk.data_ptr(),
+            pack.wtk.data_ptr(), pack.biastk.data_ptr(), pack.n_pad, pack.c_out, out.data_ptr(),
+            int(x.dtype == torch.bfloat16), int(nhwc), stream,
+        )
+        _build.check(err, "dense_block transition")
     dense_block.launches += 1
     return out
 

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
+from multi_degradation_image_enhancement_tpu_torch.parallel import collectives
 
 GROWTH = 16
 
@@ -130,10 +131,11 @@ def growth_layer_fwd(x, a, b, w16, bias):
     bsz, c, h, w = x.shape
     wk = pack_fwd_weights(w16)
     g = torch.empty((bsz, GROWTH, h, w), dtype=torch.float32, device=x.device)
-    err = _build.load().mdie_growth_fwd(
-        x.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(), wk.data_ptr(),
-        bias.data_ptr(), g.data_ptr(), _build.stream_of(x),
-    )
+    with _build.on_device(x):
+        err = _build.load().mdie_growth_fwd(
+            x.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(), wk.data_ptr(),
+            bias.data_ptr(), g.data_ptr(), _build.stream_of(x),
+        )
     _build.check(err, "growth_layer forward")
     growth_layer_fwd.launches += 1
     return g
@@ -156,11 +158,12 @@ def growth_layer_bwd(x, dg, a, b, w16):
     scratch = torch.empty(
         (lib.mdie_growth_bwd_scratch(bsz, c, h, w),), dtype=torch.float32, device=x.device
     )
-    err = lib.mdie_growth_bwd(
-        x.data_ptr(), dg.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(), wdv.data_ptr(),
-        dx.data_ptr(), dw.data_ptr(), da.data_ptr(), db.data_ptr(), scratch.data_ptr(),
-        _build.stream_of(x),
-    )
+    with _build.on_device(x):
+        err = lib.mdie_growth_bwd(
+            x.data_ptr(), dg.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(),
+            wdv.data_ptr(), dx.data_ptr(), dw.data_ptr(), da.data_ptr(), db.data_ptr(),
+            scratch.data_ptr(), _build.stream_of(x),
+        )
     _build.check(err, "growth_layer backward")
     growth_layer_bwd.launches += 1
     return dx, dw, da, db
@@ -196,3 +199,22 @@ def growth_layer(x, a, b, w, bias):
     if x.device.type == "cpu":
         return growth_layer_plain(x, a, b, w, bias)
     return _GrowthLayer.apply(x, a, b, w, bias)
+
+
+def growth_layer_sharded(fn, x, a, b, w, bias):
+    """The growth layer ``fn`` (:func:`growth_layer`, or a test's stand-in)
+    on this rank's H shard of ``x`` under the active mesh's ``spatial`` axis.
+
+    The layer pads the *activated* value ``relu(x·a + b)`` with zeros, so it
+    takes one halo row of *raw* x from each neighbouring shard and none past
+    the global image edges (a zero row of raw x would activate to
+    ``relu(b)``, not 0): the kernels pad there as for a whole image.  The
+    output rows of the halo are cropped.  The backward's dx over the halo
+    rows goes back to their owners (``collectives.halo_h``); its da and db
+    over them are partial sums that the gradient all-reduce completes with
+    the owners' shares.  Without a spatial axis: ``fn(x, a, b, w, bias)``."""
+    if collectives.spatial_shards() == 1:
+        return fn(x, a, b, w, bias)
+    h = x.shape[2]
+    top, _ = collectives.halo_rows_added(1, h, "none")
+    return fn(collectives.halo_h(x, 1, "none"), a, b, w, bias)[:, :, top:top + h]

@@ -147,10 +147,11 @@ def noise_degrade_01(
     _build.require(std, "std", torch.float32, (b,))
     out = torch.empty(images.shape, dtype=out_dtype, device=images.device)
     lib = _build.load()
-    err = lib.mdie_noise_degrade(
-        images.data_ptr(), std.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        b, images[0].numel(), seed & _MASK32, scale, _build.stream_of(images),
-    )
+    with _build.on_device(images):
+        err = lib.mdie_noise_degrade(
+            images.data_ptr(), std.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
+            b, images[0].numel(), seed & _MASK32, scale, _build.stream_of(images),
+        )
     _build.check(err, "noise_degrade")
     noise_degrade_01.launches += 1
     return out
@@ -172,10 +173,11 @@ def philox_bits(seed: int, batch: int, n_pairs: int, device="cpu"):
     bits1 = torch.empty((batch, n_pairs), dtype=torch.int32, device=device)
     bits2 = torch.empty_like(bits1)
     lib = _build.load()
-    err = lib.mdie_philox_bits(
-        bits1.data_ptr(), bits2.data_ptr(), batch, n_pairs, seed & _MASK32,
-        _build.stream_of(bits1),
-    )
+    with _build.on_device(bits1):
+        err = lib.mdie_philox_bits(
+            bits1.data_ptr(), bits2.data_ptr(), batch, n_pairs, seed & _MASK32,
+            _build.stream_of(bits1),
+        )
     _build.check(err, "philox_bits")
     return bits1, bits2
 

@@ -105,10 +105,11 @@ def probe_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((bsz, m, n), dtype=OUT_DTYPE[a.dtype], device=a.device)
     int8 = a.dtype == torch.int8
     bt = torch.empty((bsz, n, k) if int8 else (0,), dtype=torch.int8, device=a.device)
-    err = _build.load().mdie_probe_matmul(
-        a.data_ptr(), b.data_ptr(), int(int8), bsz, m, k, n, out.data_ptr(), bt.data_ptr(),
-        _build.stream_of(a),
-    )
+    with _build.on_device(a):
+        err = _build.load().mdie_probe_matmul(
+            a.data_ptr(), b.data_ptr(), int(int8), bsz, m, k, n, out.data_ptr(), bt.data_ptr(),
+            _build.stream_of(a),
+        )
     _build.check(err, "probe_matmul")
     probe_matmul.launches += 1
     return out

@@ -62,8 +62,9 @@ def _launch_product(fn_name: str, x: torch.Tensor, m: torch.Tensor, p: int, out_
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} must be 16-byte aligned")
     out = torch.empty(out_shape, dtype=torch.bfloat16, device=x.device)
-    err = getattr(_build.load(), fn_name)(
-        x.data_ptr(), m.data_ptr(), x.shape[0], p, out.data_ptr(), _build.stream_of(x))
+    with _build.on_device(x):
+        err = getattr(_build.load(), fn_name)(
+            x.data_ptr(), m.data_ptr(), x.shape[0], p, out.data_ptr(), _build.stream_of(x))
     _build.check(err, name)
     return out
 
@@ -126,8 +127,9 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("transpose: x must be 4-byte aligned (bf16 pairs)")
     _build.require_batch(bsz, "transpose")
     out = torch.empty((bsz, c, p), dtype=torch.bfloat16, device=x.device)
-    err = _build.load().mdie_probe_transpose(x.data_ptr(), bsz, p, c, out.data_ptr(),
-                                             _build.stream_of(x))
+    with _build.on_device(x):
+        err = _build.load().mdie_probe_transpose(x.data_ptr(), bsz, p, c, out.data_ptr(),
+                                                 _build.stream_of(x))
     _build.check(err, "transpose")
     transpose.launches += 1
     return out

@@ -13,6 +13,11 @@ the pipeline's device (``ops.perceptual.init_frozen_params``).  Callers run
 the loss outside any bf16 autocast, so these terms run in f32 as in JAX;
 gradients reach the outputs only (the networks do not require grad, and the
 targets' features are taken without a graph).
+
+Under a mesh (``parallel.mesh.shard_train_step``) the pipeline gathers the
+``spatial`` shards of its images and returns this rank's share of each
+global mean over ``data`` (``ops.ssim.masked_mean``); the step sums the
+shares for the report.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from multi_degradation_image_enhancement_tpu_torch.ops.perceptual import (
 )
 from multi_degradation_image_enhancement_tpu_torch.ops.ssim import masked_mean
 from multi_degradation_image_enhancement_tpu_torch.ops.ssim import ssim as ssim_fn
+from multi_degradation_image_enhancement_tpu_torch.parallel import collectives
 
 _SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 _SOBEL_Y = ((-1.0, -2.0, -1.0), (0.0, 0.0, 0.0), (1.0, 2.0, 1.0))
@@ -66,6 +72,11 @@ class LossPipeline:
 
     def __call__(self, outputs, targets=None, inputs=None, is_paired: bool = True, mask=None,
                  training: bool = False) -> Dict[str, torch.Tensor]:
+        # under a spatial mesh axis, the whole images (SSIM filters in valid
+        # mode; VGG and LPIPS see whole images): every spatial rank of a data
+        # shard computes its loss, and keeps its own rows' gradient
+        outputs, targets, inputs = (None if t is None else collectives.gather_h(t)
+                                    for t in (outputs, targets, inputs))
         if training and self.worst_case is not None and is_paired:
             return self._call_worst_case(outputs, targets, inputs, mask)
         components: Dict[str, torch.Tensor] = {}
@@ -81,31 +92,43 @@ class LossPipeline:
         return components
 
     def _call_worst_case(self, outputs, targets, inputs, mask) -> Dict[str, torch.Tensor]:
+        """Under a mesh's ``data`` axis the rank holds ``b`` of the global
+        batch's images: ``k`` and the threshold come from the global batch
+        (the ranks' detached per-image totals gathered in batch order), and
+        each mean is this rank's share over the all-reduced denominator."""
         b = outputs.shape[0]
+        group = collectives.loss_group()
+        mesh = collectives.active_mesh()
+        shards, index = (1, 0) if group is None else (mesh.size("data"), mesh.index("data"))
+        b_all = b * shards
         frac = float(self.worst_case.get("fraction", 0.25))
         scale = float(self.worst_case.get("scale", 3.0))
-        k = min(max(int(round(frac * b)), 1), b)
+        k = min(max(int(round(frac * b_all)), 1), b_all)
         valid = (torch.ones((b,), dtype=torch.float32, device=outputs.device) if mask is None
                  else mask.reshape(b).float())
+        n_valid = collectives.all_reduce_detached(valid.sum(), group)
         components: Dict[str, torch.Tensor] = {}
         per_image_total = torch.zeros((b,), dtype=torch.float32, device=outputs.device)
         for term in self.terms:
             if term.mode == "unpaired":
                 continue
-            val = torch.stack([
-                term.fn(outputs=outputs[i:i + 1], targets=targets[i:i + 1],
-                        inputs=None if inputs is None else inputs[i:i + 1])
-                for i in range(b)
-            ]).reshape(b).float()
+            with collectives.unsharded():  # one image's term, as one device computes it
+                val = torch.stack([
+                    term.fn(outputs=outputs[i:i + 1], targets=targets[i:i + 1],
+                            inputs=None if inputs is None else inputs[i:i + 1])
+                    for i in range(b)
+                ]).reshape(b).float()
             # the plain (unweighted) masked mean keeps logged components comparable
-            components[term.name] = (val * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+            components[term.name] = (val * valid).sum() / torch.clamp(n_valid, min=1.0)
             per_image_total = per_image_total + term.weight * val
         ranked = torch.where(valid > 0, per_image_total.detach(),
                              torch.full_like(per_image_total, float("-inf")))
-        thresh = torch.sort(ranked).values[b - k]
+        ranked_all = collectives.all_gather_detached(ranked, group, shards, index).reshape(b_all)
+        thresh = torch.sort(ranked_all).values[b_all - k]
         weights = torch.where(ranked >= thresh, scale, 1.0) * valid
+        weight_sum = collectives.all_reduce_detached(weights.sum(), group)
         components["total"] = (weights * per_image_total).sum() / torch.clamp(
-            weights.sum(), min=1e-8)
+            weight_sum, min=1e-8)
         return components
 
 
@@ -155,7 +178,10 @@ def _make_term(name: str, args: Dict[str, Any], device: torch.device) -> Callabl
     if name == "ssim":
         def ssim_loss(outputs, targets=None, inputs=None, mask=None):
             _require_targets("ssim", targets)
-            return 1.0 - ssim_fn(outputs, targets, mask=mask)
+            # under a data axis the 1 is shared too: this rank's share of it
+            one = 1.0 if collectives.loss_group() is None else masked_mean(
+                torch.ones(outputs.shape[0], device=outputs.device), mask)
+            return one - ssim_fn(outputs, targets, mask=mask)
         return ssim_loss
 
     if name == "channel_mean":

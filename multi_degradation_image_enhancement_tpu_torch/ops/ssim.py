@@ -15,24 +15,39 @@ from typing import Optional, Union
 
 import torch
 
+from multi_degradation_image_enhancement_tpu_torch.parallel import collectives
+
 DataRange = Union[float, str, None]
 
 
 def _resolve_data_range(preds: torch.Tensor, target: torch.Tensor, data_range: DataRange):
     if data_range is None or data_range == "auto":
-        return torch.maximum(preds.amax() - preds.amin(), target.amax() - target.amin())
+        group = collectives.loss_group()
+
+        def amax(t):
+            return collectives.all_reduce_amax(t, (), group)
+
+        return torch.maximum(amax(preds) + amax(-preds), amax(target) + amax(-target))
     return torch.tensor(float(data_range), dtype=preds.dtype, device=preds.device)
 
 
 def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean over all elements of the valid samples (``mask``: per-sample
     {0, 1} of shape [B], ``None`` = all valid): the mask-weighted mean of
-    per-sample means, which equals it because samples have equal sizes."""
+    per-sample means, which equals it because samples have equal sizes.
+
+    Under a mesh with a ``data`` axis ``x`` holds this rank's samples and the
+    result is its share of the global batch's mean: its own sum over the
+    global count (the valid counts all-reduced, as a padded last batch may
+    leave the ranks unequal ones); the shares sum to the global mean."""
+    group = collectives.loss_group()
     if mask is None:
-        return x.mean()
+        shards = 1 if group is None else collectives.active_mesh().size("data")
+        return x.mean() if shards == 1 else x.mean() * (1.0 / shards)
     per_sample = x.reshape(x.shape[0], -1).mean(dim=1)
     m = mask.to(per_sample.dtype)
-    return (per_sample * m).sum() / torch.clamp(m.sum(), min=1.0)
+    count = collectives.all_reduce_detached(m.sum(), group)
+    return (per_sample * m).sum() / torch.clamp(count, min=1.0)
 
 
 def psnr(preds, target, data_range: DataRange = "auto", mask=None) -> torch.Tensor:

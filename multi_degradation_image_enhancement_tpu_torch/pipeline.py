@@ -22,8 +22,21 @@ single 1.0 term per row, exact in f32, and the eval forward treats every
 image on its own.  An expert with no row to restore is not run.  Each
 expert's forward is the one the JAX pipeline applies: the eval module with
 unfused DenseBlocks (``models.cdan.eval_forward``; bf16 autocast on the
-card), not the fused serving forward.  The expert-parallel mesh of the JAX
-package (``pipeline.py:100-120``) is not ported.
+card), not the fused serving forward.
+
+Expert-parallel serving (``mesh`` with an ``expert`` axis, the JAX
+package's ``pipeline.py:100-120``; one process per GPU): the bank is padded
+to a multiple of the axis (``n_pad`` dummy experts, never routed to) and
+each rank holds a contiguous block of it, JAX's ``P(EXPERT_AXIS)`` layout
+(:func:`expert_block`; the CLI loads only those).  Every batch's routes
+are decided once, on the mesh's first rank, and broadcast, so no two ranks
+can split on a probability at its threshold.  In top1 each rank restores
+its experts' rows into a zero batch and an all-reduce sum combines them
+(exact: each row has one contributor); clean and dropped rows pass
+through.  In sequential mode, expert by expert in the decided order, the
+owner restores the masked rows and an all-reduce of the zero-padded rows
+hands them to every rank.  A ``data`` axis splits each expert's rows over
+its ranks.  Every rank returns the whole batch.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from multi_degradation_image_enhancement_tpu_torch.classification.model import (
     IMAGENET_MEAN,
@@ -41,6 +55,7 @@ from multi_degradation_image_enhancement_tpu_torch.classification.model import (
 from multi_degradation_image_enhancement_tpu_torch.engine.checkpoint import load_weights
 from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN, eval_forward
 from multi_degradation_image_enhancement_tpu_torch.ops.degradations import DEGRADATIONS
+from multi_degradation_image_enhancement_tpu_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS
 
 Forward = Callable[[torch.Tensor], torch.Tensor]
 
@@ -48,42 +63,71 @@ Forward = Callable[[torch.Tensor], torch.Tensor]
 CLEAN, DROPPED = -1, -2
 
 
-def load_expert_bank(weight_paths: Dict[str, str], device, dtype) -> Tuple[List[str], List[Forward]]:
+def load_expert_bank(weight_paths: Dict[str, str], device, dtype,
+                     only: Optional[Sequence[int]] = None
+                     ) -> Tuple[List[str], List[Optional[Forward]]]:
     """Load each expert's ``CDAN_<task>.pt`` strictly onto ``device`` and
     build its forward: the eval module in ``dtype`` (``eval_forward``: every
     DenseBlock unfused, a bf16 autocast for bf16), as the JAX pipeline
     applies ``CDAN(dtype)`` (``pipeline.py:125-126``).  ``weight_paths``
-    maps degradation name → weight file; returns (expert order, forwards)."""
+    maps degradation name → weight file; returns (expert order, forwards).
+    ``only`` (an expert-parallel rank's :func:`expert_block`) loads those
+    experts and leaves None for the others."""
     names = list(weight_paths)
-    forwards = []
-    for name in names:
+    forwards: List[Optional[Forward]] = []
+    for e, name in enumerate(names):
         path = weight_paths[name]
         if not os.path.isfile(path):
             raise FileNotFoundError(f"Expert '{name}' weights not found: {path}")
+        if only is not None and e not in only:
+            forwards.append(None)
+            continue
         model = load_weights(path, CDAN()).to(device).eval()
         forwards.append(eval_forward(model, dtype))
     return names, forwards
+
+
+def expert_block(n_experts: int, mesh) -> range:
+    """The experts a rank holds on ``mesh``'s ``expert`` axis: its contiguous
+    block of the bank padded to a multiple of the axis, real experts only
+    (every expert without an expert axis)."""
+    if mesh is None or EXPERT_AXIS not in mesh.axis_names:
+        return range(n_experts)
+    axis = mesh.size(EXPERT_AXIS)
+    block = (n_experts + (-n_experts) % axis) // axis
+    lo = mesh.index(EXPERT_AXIS) * block
+    return range(min(lo, n_experts), min(lo + block, n_experts))
 
 
 class RoutedRestorer:
     """A routed bank of per-degradation restorers behind one callable.
 
     ``expert_forwards[e]`` maps NHWC [N,H,W,3] in [0, 1] to restored f32
-    images of the same shape (any callable: tests give tiny nets)."""
+    images of the same shape (any callable: tests give tiny nets).  With a
+    ``mesh`` that has an ``expert`` axis only the rank's block
+    (:func:`expert_block`) is kept and called; the others may be None."""
 
-    def __init__(self, expert_forwards: Sequence[Forward], expert_names: Sequence[str],
-                 mode: str = "top1", capacity_factor: float = 2.0, ordering: str = "fixed"):
+    def __init__(self, expert_forwards: Sequence[Optional[Forward]], expert_names: Sequence[str],
+                 mode: str = "top1", capacity_factor: float = 2.0, ordering: str = "fixed",
+                 mesh=None):
         if mode not in ("top1", "sequential"):
             raise ValueError(f"Unknown routing mode: {mode}")
         if ordering not in ("fixed", "severity", "severity_asc"):
             raise ValueError(f"Unknown sequential ordering: {ordering}")
         if len(expert_forwards) != len(expert_names):
             raise ValueError("one forward per expert name")
-        self.expert_forwards = list(expert_forwards)
         self.expert_names = list(expert_names)
         self.mode = mode
         self.ordering = ordering
         self.capacity_factor = float(capacity_factor)
+        self.mesh = mesh if mesh is not None and EXPERT_AXIS in mesh.axis_names else None
+        n = len(self.expert_names)
+        self.n_pad = 0 if self.mesh is None else (-n) % self.mesh.size(EXPERT_AXIS)
+        self.owned = expert_block(n, self.mesh)
+        self.expert_forwards = [f if e in self.owned else None
+                                for e, f in enumerate(expert_forwards)]
+        if any(self.expert_forwards[e] is None for e in self.owned):
+            raise ValueError(f"a forward is missing for this rank's experts {list(self.owned)}")
 
     def capacity(self, batch: int) -> int:
         return max(1, int(math.ceil(batch / len(self.expert_names) * self.capacity_factor)))
@@ -124,6 +168,8 @@ class RoutedRestorer:
         with a severity ordering.  Returns f32 [B,H,W,3]."""
         thresholds = torch.as_tensor(thresholds, dtype=torch.float32, device=probs.device)
         out = images.float().clone()
+        if self.mesh is not None:
+            return self._expert_parallel(images, out, probs, thresholds, severities)
         if self.mode == "top1":
             routes = self.route(probs, thresholds).to(images.device)
             for e, forward in enumerate(self.expert_forwards):
@@ -135,6 +181,51 @@ class RoutedRestorer:
             rows = torch.nonzero(probs[:, e] >= thresholds[e]).flatten().to(images.device)
             if rows.numel():
                 out[rows] = self.expert_forwards[e](out[rows]).float()
+        return out
+
+
+    def _expert_parallel(self, images, out, probs, thresholds, severities):
+        """The call on an expert mesh (see the module's docstring)."""
+        mesh = self.mesh
+        group, src = mesh.group_of(mesh.axis_names), mesh.ranks[0]
+        b = images.shape[0]
+        chunk = -(-b // mesh.size(DATA_AXIS))
+        mine = torch.zeros((b,), dtype=torch.bool, device=images.device)
+        mine[mesh.index(DATA_AXIS) * chunk:(mesh.index(DATA_AXIS) + 1) * chunk] = True
+
+        def decided(t: torch.Tensor) -> torch.Tensor:  # the first rank's decision, everywhere
+            t = t.contiguous()
+            if group is not None:
+                dist.broadcast(t, src=src, group=group)
+            return t
+
+        def combined(t: torch.Tensor) -> torch.Tensor:  # one contributor a row: exact
+            if group is not None:
+                dist.all_reduce(t, group=group)
+            return t
+
+        if self.mode == "top1":
+            routes = decided(self.route(probs, thresholds).to(images.device))
+            restored = torch.zeros_like(out)
+            for e in self.owned:
+                rows = torch.nonzero((routes == e) & mine).flatten()
+                if rows.numel():
+                    restored[rows] = self.expert_forwards[e](images[rows]).float()
+            restored = combined(restored)
+            return torch.where((routes >= 0)[:, None, None, None], restored, out)
+        order = decided(torch.tensor(self.order(probs, thresholds, severities),
+                                     device=images.device))
+        active = decided((probs >= thresholds[None, :]).to(torch.uint8).to(images.device))
+        for e in order.tolist():
+            rows = torch.nonzero(active[:, e]).flatten()
+            if not rows.numel():
+                continue
+            part = torch.zeros((rows.numel(), *out.shape[1:]), dtype=out.dtype, device=out.device)
+            if e in self.owned:
+                here = torch.nonzero(mine[rows]).flatten()
+                if here.numel():
+                    part[here] = self.expert_forwards[e](out[rows[here]]).float()
+            out[rows] = combined(part)
         return out
 
 

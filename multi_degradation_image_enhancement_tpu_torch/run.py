@@ -11,6 +11,15 @@ writes the checkpoint and draws the loss curves into the run directory's
 ``plots/``; ``-p test`` scores it.  The phase's block picks the
 device (``train.device`` / ``test.device``): missing, null, ``"cuda"`` or
 ``"tpu"`` → CUDA (raises without a card), ``"cpu"`` → CPU.
+
+Several GPUs (``train.mesh``, ``parallel.mesh``), one process each::
+
+    torchrun --nproc_per_node N -m multi_degradation_image_enhancement_tpu_torch.run \
+        -c cfg.json -p train
+
+Under torchrun (its ``WORLD_SIZE`` set, at any size) the process joins the
+process group first (``parallel.distributed.initialize``: ``nccl`` on the
+card, ``gloo`` for a ``"cpu"`` phase); only rank 0 logs and writes.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import argparse
 
 from multi_degradation_image_enhancement_tpu_torch.data.loader import define_dataloader
 from multi_degradation_image_enhancement_tpu_torch.engine.model import resolve_device
+from multi_degradation_image_enhancement_tpu_torch.parallel import distributed
 from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
 from multi_degradation_image_enhancement_tpu_torch.utils.logger import ExperimentLogger
 from multi_degradation_image_enhancement_tpu_torch.utils.registry import (
@@ -32,9 +42,13 @@ from multi_degradation_image_enhancement_tpu_torch.utils.rng import set_seed_and
 def build_session(config):
     """Resolve a config into ``(logger, engine)`` without running anything."""
     phase = config["phase"]
-    set_seed_and_cudnn()
     phase_cfg = config[phase]
     device = resolve_device(phase_cfg["device"])
+    if distributed.launched_by_torchrun():
+        distributed.initialize(backend="gloo" if device.type == "cpu" else None)
+    set_seed_and_cudnn()
+    if not distributed.is_primary():  # rank 0 alone logs, writes runs and plots
+        config = {**config, "logging": {**(config.get("logging") or {}), "enabled": False}}
     logger = ExperimentLogger(config)
     network = define_network(config["model"]["networks"][0])
     dataset = define_dataset(phase_cfg["dataset"])

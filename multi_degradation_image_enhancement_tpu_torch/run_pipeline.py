@@ -16,7 +16,17 @@ packaged ``config/classifier_thresholds.json`` (read as a data file), then
 0.5.  The device is the card unless ``--device cpu``; the pipeline runs in
 bf16 on the card and in f32 on the CPU.  Output PNGs are
 ``clip(x·255, 0, 255)`` truncated to uint8, as the JAX CLI writes them.
-``--expert-mesh`` (expert-parallel serving) is not ported.
+
+Expert-parallel serving, one process per GPU::
+
+    torchrun --nproc_per_node N -m multi_degradation_image_enhancement_tpu_torch.run_pipeline \
+        … --expert-mesh N
+
+``N`` must divide the loaded experts (as the JAX CLI refuses otherwise) and
+equal the world size; each rank loads its block of the bank
+(``pipeline.expert_block``), and only rank 0 writes the PNGs and
+``probs.jsonl``.  The backend is ``nccl`` on the card and ``gloo`` with
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -40,9 +50,12 @@ from multi_degradation_image_enhancement_tpu_torch.data.streaming import stream_
 from multi_degradation_image_enhancement_tpu_torch.engine.model import resolve_device
 from multi_degradation_image_enhancement_tpu_torch.ops.degradations import DEGRADATIONS
 from multi_degradation_image_enhancement_tpu_torch.ops.image import true_div
+from multi_degradation_image_enhancement_tpu_torch.parallel import distributed
+from multi_degradation_image_enhancement_tpu_torch.parallel.mesh import EXPERT_AXIS, create_mesh
 from multi_degradation_image_enhancement_tpu_torch.pipeline import (
     FullPipeline,
     RoutedRestorer,
+    expert_block,
     load_expert_bank,
 )
 
@@ -82,10 +95,37 @@ def to_u8(restored: torch.Tensor) -> np.ndarray:
 
 
 def build_full_pipeline(classifier_path: str, weights_dir: str, mode: str = "top1",
-                        ordering: str = "fixed", device="cuda") -> FullPipeline:
-    """The CLI's pipeline from its files, in bf16 on the card and f32 on the CPU."""
+                        ordering: str = "fixed", device="cuda",
+                        expert_mesh: int = 0) -> FullPipeline:
+    """The CLI's pipeline from its files, in bf16 on the card and f32 on the
+    CPU.  ``expert_mesh`` > 1 shards the bank over that many processes: it
+    must divide the experts found (checked first), then the process joins
+    the group (``nccl`` on the card, ``gloo`` on the CPU; a group it already
+    joined stays), whose size must be ``expert_mesh``."""
     device = resolve_device(device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+
+    weight_paths = {}
+    for name in DEGRADATIONS:
+        p = os.path.join(weights_dir, f"CDAN_{name}.pt")
+        if os.path.isfile(p):
+            weight_paths[name] = p
+        else:
+            print(f"[pipeline] WARNING: no weights for '{name}' ({p}); passthrough")
+    if not weight_paths:
+        raise FileNotFoundError(f"No CDAN_<task>.pt files in {weights_dir}")
+    mesh = None
+    if expert_mesh > 1:
+        if len(weight_paths) % expert_mesh:
+            raise ValueError(f"--expert-mesh {expert_mesh} does not divide the "
+                             f"{len(weight_paths)} loaded experts")
+        distributed.initialize(backend="gloo" if device.type == "cpu" else None)
+        if distributed.world_size() != expert_mesh:
+            raise ValueError(f"--expert-mesh {expert_mesh} needs {expert_mesh} processes, this "
+                             f"run has {distributed.world_size()}: launch with torchrun "
+                             f"--nproc_per_node {expert_mesh}")
+        mesh = create_mesh({EXPERT_AXIS: expert_mesh})
+        print(f"[pipeline] expert bank sharded over {expert_mesh} processes")
 
     classes = list(DEGRADATIONS)
     meta_path = classifier_path + ".json"
@@ -97,17 +137,9 @@ def build_full_pipeline(classifier_path: str, weights_dir: str, mode: str = "top
     thresholds, thr_source = resolve_thresholds(classes, str(PACKAGED_THRESHOLDS), thr_path)
     print(f"[pipeline] thresholds: {thr_source}")
 
-    weight_paths = {}
-    for name in DEGRADATIONS:
-        p = os.path.join(weights_dir, f"CDAN_{name}.pt")
-        if os.path.isfile(p):
-            weight_paths[name] = p
-        else:
-            print(f"[pipeline] WARNING: no weights for '{name}' ({p}); passthrough")
-    if not weight_paths:
-        raise FileNotFoundError(f"No CDAN_<task>.pt files in {weights_dir}")
-    names, forwards = load_expert_bank(weight_paths, device, dtype)
-    router = RoutedRestorer(forwards, names, mode=mode, ordering=ordering)
+    names, forwards = load_expert_bank(weight_paths, device, dtype,
+                                       only=expert_block(len(weight_paths), mesh))
+    router = RoutedRestorer(forwards, names, mode=mode, ordering=ordering, mesh=mesh)
     return FullPipeline(serving_classifier(clf, dtype, device), router, thresholds, classes)
 
 
@@ -128,15 +160,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--save-probs", action="store_true", help="write probs.jsonl")
     ap.add_argument("--io-threads", type=int, default=4, help="PNG writer pool size")
     ap.add_argument("--expert-mesh", type=int, default=0,
-                    help="expert-parallel serving over this many devices (not ported)")
+                    help="expert-parallel serving over this many processes (under torchrun, "
+                    "one per GPU)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.expert_mesh > 1:
-        raise NotImplementedError("--expert-mesh (expert-parallel serving) is not ported to "
-                                  "PyTorch yet: ROADMAP.md queue 1 item 5 (DDP and meshes)")
 
     pipeline = build_full_pipeline(args.classifier, args.weights_dir, args.mode, args.ordering,
-                                   args.device)
+                                   args.device, args.expert_mesh)
     files = _list_images(args.images)
     if not files:
         raise RuntimeError(f"No images in {args.images}")
@@ -146,11 +176,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         restored, probs = pipeline(to_01(imgs_u8, device))
         return to_u8(restored), probs.float().cpu().numpy()
 
+    primary = distributed.is_primary()
     rows = stream_restore(
         files, args.images, args.out, hw=tuple(args.input_hw), batch=args.batch,
         run_batch=run_batch, io_threads=args.io_threads,
-        progress=lambda done, total: print(f"[pipeline] {done}/{total}"),
+        progress=lambda done, total: print(f"[pipeline] {done}/{total}"), write=primary,
     )
+    distributed.barrier()
+    if not primary:
+        return
     if args.save_probs:
         names = pipeline.router.expert_names
         with open(os.path.join(args.out, "probs.jsonl"), "w", encoding="utf-8") as f:

@@ -400,6 +400,9 @@ def test_u8_output_truncates():
 
 
 def test_expert_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        run_pipeline.main(["--images", str(tmp_path), "--out", str(tmp_path), "--classifier",
-                           "c.pt", "--weights-dir", str(tmp_path), "--expert-mesh", "3"])
+    """``--expert-mesh`` is ported now (tests/test_torch_pipeline_ep.py); what
+    stays is the JAX CLI's refusal of an axis that does not divide the
+    loaded experts, before any process group is joined."""
+    paths = write_tiny_pipeline(tmp_path)
+    with pytest.raises(ValueError, match="does not divide the 3 loaded experts"):
+        run_pipeline.main(cli_args(paths, tmp_path / "out", "--expert-mesh", "2"))
