@@ -150,7 +150,29 @@ line per phase, and exits non-zero at the first failure:
     ``RoutedRestorer`` on three experts (n_pad 1) against the unsharded one.
     Phases 31-33 run their ranks as ``chip_smoke.py --worker <name>
     <dir> [args]`` under torchrun, and print each run's backend, world
-    size and mesh; their times are of ranks sharing one card, not scaling.
+    size and mesh; their times are of ranks sharing one card, not scaling;
+34. the native host-IO engine (``data.io_native``, built with g++): where it
+    builds, 64 procedural PNGs and JPEGs (at, above and below 256x384)
+    decoded bit for bit as its NumPy plain version, at size PNG equal to
+    PIL and JPEG within 1 LSB, PNG encode round-trips, decode and encode
+    img/s beside PIL's (4 threads), and phases 24's and 28's CLIs decoded
+    through it (engine calls counted around them); where ``jpeglib.h`` or
+    ``png.h`` is missing, the build's first error line and no engine check
+    (every caller on PIL, as in the JAX package);
+35. the bf16-activation DenseBlock (``db_bf16_act`` at
+    ``db_k_stack_max_ci`` 56): kernels vs plain at the four B=128·256²
+    block shapes, at bf16 x measurably nearer than the f32-activation
+    kernels, each timed beside the f32-activation kernel; a tuning
+    file under ``build/`` through ``MDIE_SERVING_TUNING``: the serving
+    forward vs the f32 ``CDAN``, serving steps with the counts reset (17
+    bf16-activation launches of 24 a step), the step timed beside the
+    f32-activation one, and ``-p test`` through it;
+36. LPIPS on VGG16 and SqueezeNet, card vs CPU at B=4·256x384 (f32, TF32
+    off), and ``-p test`` with ``lpips: {net: vgg}``: its eval step's ms
+    beside alex's;
+37. ``train.scan_chunk: 4`` on phase 31's run in-process: the checkpoint
+    against phase 31's plain runs (bit for bit, else within phase 31's
+    limit), growth launches, an epoch's ms a step beside the plain loop's.
 
 Phases 5, 12-14, 17 and 24 use CDANs whose BatchNorm statistics keep the whole path
 live (``live_cdan``): with ``init_cdan``'s statistics the decoder's ReLUs
@@ -1008,11 +1030,12 @@ def phase_requests_cm(torch):
 
 
 def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_IMAGES,
-              task: str = "noise_synthetic"):
+              task: str = "noise_synthetic", lpips_net=None):
     """One ``run.main`` ``-p test`` on ``<task>.json``'s test block cut to
-    ``images`` images (optionally resized to ``hw``), scoring the checkpoint
-    in ``ckpt_dir``, every launch counted; with post-processing on, the
-    ``post`` row and the post-processed PNGs too.  Returns its record."""
+    ``images`` images (optionally resized to ``hw``; the LPIPS metric on
+    ``lpips_net`` when given), scoring the checkpoint in ``ckpt_dir``, every
+    launch counted; with post-processing on, the ``post`` row and the
+    post-processed PNGs too.  Returns its record."""
     import os
     import shutil
 
@@ -1033,6 +1056,10 @@ def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_I
         for op in cfg["test"]["dataset"]["args"]["transform"]["ops"]:
             if op["name"] == "Resize":
                 op["args"] = {"height": hw[0], "width": hw[1]}
+    if lpips_net is not None:
+        for item in cfg["metrics"]["items"]:
+            if item["name"] == "lpips":
+                item["args"] = {"net": lpips_net}
     cfg["save_outputs"]["output_dir"] = str(work / "outputs")
     cfg["logging"]["root_dir"] = str(work / "runs")
     (work / "config.json").write_text(json.dumps(cfg))
@@ -1044,12 +1071,14 @@ def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_I
     os.environ.update(env or {})
     try:
         dense_block.launches = conv3x3.launches = conv3x3_pool.launches = 0
+        dense_block.bf16_act_launches = 0
         t0 = time.perf_counter()
         engine = run.main(config)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {"dense_block": dense_block.launches, "conv3x3_pool": conv3x3_pool.launches,
-                    "conv3x3": conv3x3.launches}
+                    "conv3x3": conv3x3.launches,
+                    "dense_block_bf16_act": dense_block.bf16_act_launches}
     finally:
         for k, v in old.items():
             if v is None:
@@ -1725,6 +1754,7 @@ def phase_pipeline(torch, smi):
     from multi_degradation_image_enhancement_tpu_torch.benchmarks.bench_pipeline import (
         expert_forwards, time_step,
     )
+    from multi_degradation_image_enhancement_tpu_torch.data import io_native
     from multi_degradation_image_enhancement_tpu_torch.data.streaming import decode_chunk
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
     from multi_degradation_image_enhancement_tpu_torch.pipeline import CLEAN, DROPPED
@@ -1767,12 +1797,14 @@ def phase_pipeline(torch, smi):
         try:
             torch.cuda.synchronize()
             dense_block.launches, ran[0] = 0, 0
+            io_native.decode_calls = io_native.encode_calls = 0
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(log):
                 run_pipeline.main(argv(out_main))
             torch.cuda.synchronize()
             main_s = time.perf_counter() - t0
             launches, forwards = dense_block.launches, ran[0]
+            io_calls = {"decode": io_native.decode_calls, "encode": io_native.encode_calls}
         finally:
             run_pipeline.load_expert_bank = load_expert_bank
         out = work / f"out_{mode}"
@@ -1822,8 +1854,9 @@ def phase_pipeline(torch, smi):
                f"{cli_s:.1f} s; in-process FullPipeline vs both "
                f"CLIs' PNGs max |d| {worst} LSB (limit 1), probs max |d| {probs_err:.2e}; the "
                f"in-process CLI ran {forwards} expert forwards (its probabilities call for "
-               f"{expected}) and {launches} dense_block launches (expected 0: the eval module)")
-        rec = {"launches": launches, "expert_forwards": forwards, "cli_s": cli_s}
+               f"{expected}) and {launches} dense_block launches (expected 0: the eval module); "
+               f"native host-IO calls {io_calls}")
+        rec = {"launches": launches, "expert_forwards": forwards, "cli_s": cli_s, "io": io_calls}
         if mode == "top1":
             r = torch.cat(routes)
             counts = {"routed": int((r >= 0).sum()), "clean": int((r == CLEAN).sum()),
@@ -2103,6 +2136,7 @@ def phase_dir_config(torch, smi):
     import shutil
 
     from multi_degradation_image_enhancement_tpu_torch import run
+    from multi_degradation_image_enhancement_tpu_torch.data import io_native
     from multi_degradation_image_enhancement_tpu_torch.datasets_generation import generate_paired
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
         LAUNCHES_PER_BLOCK, dense_block,
@@ -2154,12 +2188,13 @@ def phase_dir_config(torch, smi):
     gen = torch.Generator(device="cuda").manual_seed(28)
     step_ms = cuda_ms(lambda: engine._train_step(engine.state, inputs, targets, gen, mask), 10, 3)
 
-    dense_block.launches = 0
+    dense_block.launches = io_native.decode_calls = io_native.encode_calls = 0
     t0 = time.perf_counter()
     tester = run.main(load_config(str(work / "config.json"), phase="test"))
     torch.cuda.synchronize()
     test_s = time.perf_counter() - t0
     test_launches = dense_block.launches
+    io_calls = {"decode": io_native.decode_calls, "encode": io_native.encode_calls}
     (csv_path,) = (work / "runs").glob("noise/*/test.csv")
     header, row = csv_path.read_text().splitlines()
     scores = {k: float(v) for k, v in zip(header.split(","), row.split(","))
@@ -2174,8 +2209,9 @@ def phase_dir_config(torch, smi):
         f"{loss:.5f}, launches {train_launches}; train step {step_ms:.3f} ms "
         f"({bsz / step_ms * 1e3:.1f} img/s)")
     say("dir_config", f"[{smi}] noise.json -p test: {n['test']} pairs in {test_s:.2f} s, {pngs} PNGs, "
-        f"scores {scores}, dense_block launches {test_launches}; eval step {eval_ms:.3f} ms per "
-        f"B={bsz} batch ({bsz / eval_ms * 1e3:.1f} img/s)")
+        f"scores {scores}, dense_block launches {test_launches}, native host-IO calls "
+        f"{io_calls}; eval step {eval_ms:.3f} ms per B={bsz} batch ({bsz / eval_ms * 1e3:.1f} "
+        "img/s)")
     require(math.isfinite(loss) and engine.network.fused_dense, "finite loss, fused DenseBlocks")
     require(train_launches["growth_train_fwd"] == 16 * steps * (1 + passes)
             and train_launches["growth_train_bwd"] == 16 * steps, "growth-train launches (#4-#7)")
@@ -2183,7 +2219,7 @@ def phase_dir_config(torch, smi):
     require(test_launches == 4 * LAUNCHES_PER_BLOCK * test_batches, "DenseBlock launches (#2)")
     require(pngs == n["test"] and all(math.isfinite(v) for v in scores.values()), "test outputs")
     return {"train_launches": train_launches, "test_launches": test_launches,
-            "train_ms": step_ms, "eval_ms": eval_ms}
+            "train_ms": step_ms, "eval_ms": eval_ms, "io": io_calls}
 
 
 def _remat_step(torch, model, remat: bool, precision: str, batch, masks, record=None):
@@ -2936,6 +2972,367 @@ def phase_expert_parallel(torch, smi, art):
     return records
 
 
+HOST_IO_IMAGES = 64  # phase 34: procedural images, PNG and JPEG, at, above and below 256x384
+HOST_IO_THREADS = 4
+BF16_ACT_K = 56  # phase 35: the shipped serving_tuning.json's db_k_stack_max_ci
+BF16_ACT_STEPS = 3  # phase 35: serving steps counted with bf16 activations
+# phase 35: the bf16-activation kernel vs its plain version at bf16 x
+BF16_ACT_MAX = 1e-3  # twice its reading, one bf16 ulp at 0.125-0.25 (NVIDIA H100, 700 W)
+BF16_ACT_MEAN_SHARE = 0.01  # its reading: below 1e-6 of the f32-activation kernel's mean
+LPIPS_BATCH = 4  # phase 36: B=4·256x384, card vs CPU
+SCAN_K = 4  # phase 37: train.scan_chunk (one epoch of 64 images at B=16 is one chunk)
+
+
+def _host_io_images(work: Path, n: int, hw):
+    """``n`` procedural images, PNG and JPEG (quality 90) in turns, a third
+    at ``hw``, a third 1.5× larger, a third at half size; their paths."""
+    from PIL import Image
+
+    from multi_degradation_image_enhancement_tpu_torch.data.synthetic import _procedural_clean
+
+    work.mkdir(parents=True, exist_ok=True)
+    sizes = (hw, (hw[0] * 3 // 2 + 1, hw[1] * 3 // 2 + 3), (hw[0] // 2 - 1, hw[1] // 2 + 1))
+    paths = []
+    for i in range(n):
+        h, w = sizes[i % 3]
+        img = Image.fromarray(_procedural_clean(1, h, w, seed=340 + i)[0])
+        path = work / (f"h{i:03d}.png" if i % 2 == 0 else f"h{i:03d}.jpg")
+        img.save(path, **({} if i % 2 == 0 else {"quality": 90}))
+        paths.append(str(path))
+    return paths
+
+
+def host_io_checks(work: Path, images: int = HOST_IO_IMAGES, hw=EVAL_HW,
+                   threads: int = HOST_IO_THREADS) -> dict:
+    """Phase 34's checks of the native host-IO engine (host work, no card):
+    ``images`` procedural images decoded by the engine at ``hw``, each equal
+    to the NumPy plain version of the engine's resize bit for bit (run on the
+    engine's own exact-size decode); at size, PNG equal to PIL and JPEG within
+    1 LSB of PIL; a missing file zero-filled and counted; PNG encode
+    round-trips.  Then decode and encode img/s at ``hw`` on ``threads``
+    threads beside PIL on a pool of as many threads (PIL's encode at its
+    default level)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from multi_degradation_image_enhancement_tpu_torch.data import io_native
+
+    paths = _host_io_images(work / "images", images, hw)
+    got = io_native.decode_batch(paths, *hw, n_threads=threads)
+    require(got is not None and got.shape == (images, *hw, 3), "engine batch decode")
+    jpeg_lsb = 0
+    for i, path in enumerate(paths):
+        pil = np.asarray(Image.open(path).convert("RGB"))
+        exact = io_native.decode_image(path, *pil.shape[:2], io_native.MODE_EXACT)
+        require(np.array_equal(got[i], io_native.resize_bilinear_np(exact, *hw)),
+                f"{path}: engine decode equals the NumPy plain version")
+        if pil.shape[:2] == tuple(hw):
+            d = int(np.abs(exact.astype(np.int16) - pil).max())
+            require(d == 0 if path.endswith(".png") else d <= 1, f"{path}: at size vs PIL ({d})")
+            jpeg_lsb = max(jpeg_lsb, d)
+    before = io_native.decode_failures
+    holed = io_native.decode_batch([paths[0], str(work / "missing.png")], *hw, n_threads=2)
+    require(io_native.decode_failures == before + 1 and not holed[1].any(),
+            "a missing file zero-filled and counted")
+    out = [str(work / f"enc{i:03d}.png") for i in range(images)]
+    require(io_native.encode_png_batch(out, got, 1, threads) == 0, "engine batch encode")
+    for path, frame in zip(out, got):
+        require(np.array_equal(np.asarray(Image.open(path)), frame), f"{path} round-trips")
+
+    def pil_decode(path):
+        img = Image.open(path).convert("RGB")
+        if (img.height, img.width) != tuple(hw):
+            img = img.resize((hw[1], hw[0]), Image.BILINEAR)
+        return np.asarray(img)
+
+    def pil_encode(args):
+        Image.fromarray(args[1]).save(args[0])
+
+    rates = {}
+    with ThreadPoolExecutor(threads) as pool:
+        for name, fn in (
+                ("engine_decode", lambda: io_native.decode_batch(paths, *hw, n_threads=threads)),
+                ("pil_decode", lambda: list(pool.map(pil_decode, paths))),
+                ("engine_encode", lambda: io_native.encode_png_batch(out, got, 1, threads)),
+                ("pil_encode", lambda: list(pool.map(pil_encode, zip(out, got))))):
+            fn()  # warm the page cache and the pool
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            rates[name] = 3 * images / (time.perf_counter() - t0)
+    return {"jpeg_max_lsb": jpeg_lsb, "img_s": rates}
+
+
+def phase_host_io(torch, smi, pipe_records, dir_record):
+    """Phase 34: the native host-IO engine (``data.io_native``).  Where it
+    builds: :func:`host_io_checks`, and phase 24's in-process routed CLI and
+    phase 28's ``-p test`` decoded through it (their counts read around
+    them).  Where ``g++`` lacks ``jpeglib.h`` / ``png.h`` (or the libraries),
+    the engine is unavailable, as in the JAX package, every caller takes
+    PIL, and the phase prints the build's first error line and runs no
+    engine check."""
+    import shutil
+
+    from multi_degradation_image_enhancement_tpu_torch.data import io_native
+
+    if not io_native.available():
+        error = (io_native.build_error() or "MDIE_NATIVE_IO=0").strip().splitlines()
+        first = next((ln for ln in error if "error:" in ln), error[0])  # the compiler's own
+        say("host_io", f"native engine unavailable on this machine, PIL decodes and encodes "
+            f"(phases 24 and 28 made {pipe_records['top1']['io']} / {dir_record['io']} engine "
+            f"calls); no engine check run; the build's first error: {first.strip()}")
+        require(pipe_records["top1"]["io"]["decode"] == 0 and dir_record["io"]["decode"] == 0,
+                "no engine call without the engine")
+        return None
+    work = Path("build") / "chip_smoke_host_io"
+    shutil.rmtree(work, ignore_errors=True)
+    res = host_io_checks(work)
+    r = res["img_s"]
+    say("host_io", f"[{smi}] {HOST_IO_IMAGES} images (PNG and JPEG; at, above and below "
+        f"{EVAL_HW[0]}x{EVAL_HW[1]}): engine decode = NumPy plain version bit for bit, at size "
+        f"PNG = PIL, JPEG within {res['jpeg_max_lsb']} LSB of PIL (limit 1), encode round-trips")
+    say("times", f"[{smi}] host IO at {EVAL_HW[0]}x{EVAL_HW[1]}, {HOST_IO_THREADS} threads: "
+        f"decode engine {r['engine_decode']:.1f} img/s vs PIL {r['pil_decode']:.1f}; encode "
+        f"engine (level 1) {r['engine_encode']:.1f} img/s vs PIL {r['pil_encode']:.1f}")
+    for name, calls in (("phase 24 routed CLI", pipe_records["top1"]["io"]),
+                        ("phase 28 -p test", dir_record["io"])):
+        say("host_io", f"{name}: engine calls {calls}")
+        require(calls["decode"] > 0, f"{name} decoded through the native engine")
+    return res
+
+
+def bf16_act_blocks(torch, smi, model):
+    """Phase 35's kernel checks: at each of the four B=128·256² block shapes,
+    the bf16-activation kernel vs its plain version at f32 x (the DenseBlock
+    limits) and at bf16 x, which rounds where the kernel rounds.  There the
+    kernel must come within BF16_ACT_MAX, and its mean distance must be at
+    most BF16_ACT_MEAN_SHARE of the f32-activation kernel's from the same
+    plain output: a kernel that ignored the flag would fail.  Each block is
+    timed with f32 and bf16 activations, in turns, and its plain version.
+    Returns (worst distance at f32 x, summed ms, bf16 launches a step)."""
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        dense_block, dense_block_plain, pack_dense_block,
+    )
+
+    dev = torch.device("cuda")
+    blocks = _cdan_blocks(model)
+    packs = {act: {name: pack_dense_block(b, dev, act, BF16_ACT_K) for name, b in blocks.items()}
+             for act in (False, True)}
+    per_step = sum(p.layer_bf16_act(i) for p in packs[True].values() for i in range(5))
+    g = torch.Generator(device=dev).manual_seed(35)
+    worst = 0.0
+    sums = {"f32_act": 0.0, "bf16_act": 0.0, "plain": 0.0}
+    failed = []
+    for name, bsz, c_in, (h, w) in DB_SHAPES[:4]:
+        x = torch.rand((bsz, c_in, h, w), device=dev, generator=g).to(torch.bfloat16)
+        pack = packs[True][name]
+        got = dense_block(x, pack)
+        ref16 = dense_block_plain(x, pack).float()
+        d_on = (got.float() - ref16).abs()
+        d_off = (dense_block(x, packs[False][name]).float() - ref16).abs()
+        on, off = (d_on.max().item(), d_on.mean().item()), (d_off.max().item(), d_off.mean().item())
+        worst = max(worst, _db_check(torch, f"bf16_act {name} B={bsz} c={c_in} {h}x{w} layers "
+                                     f"{[pack.layer_bf16_act(i) for i in range(5)]} (vs plain at "
+                                     "f32 x)", got, dense_block_plain(x.float(), pack)))
+        say("bf16_act", f"{name}: vs plain at bf16 x (the same rounding points), bf16-activation "
+            f"kernel max {on[0]:.3e} (limit {BF16_ACT_MAX:.0e}) mean {on[1]:.3e} (limit "
+            f"{BF16_ACT_MEAN_SHARE} x {off[1]:.3e} = {BF16_ACT_MEAN_SHARE * off[1]:.3e}); "
+            f"f32-activation kernel max {off[0]:.3e} mean {off[1]:.3e}")
+        if not (on[0] <= BF16_ACT_MAX and on[1] <= BF16_ACT_MEAN_SHARE * off[1]):
+            failed.append(name)
+        t = {"f32_act": [], "bf16_act": []}
+        for act in ("f32_act", "bf16_act", "bf16_act", "f32_act"):
+            p = packs[act == "bf16_act"][name]
+            t[act].append(cuda_ms(lambda: dense_block(x, p), 10))
+        t = {k: sum(v) / 2 for k, v in t.items()}
+        t["plain"] = cuda_ms(lambda: dense_block_plain(x, pack), 5)
+        for k in sums:
+            sums[k] += t[k]
+        say("times", f"[{smi}] dense_block {name} B={bsz} c={c_in} {h}x{w} bf16: f32-activation "
+            f"kernel {t['f32_act']:.3f} ms, bf16-activation kernel {t['bf16_act']:.3f} ms, "
+            f"plain (bf16 activations) {t['plain']:.3f} ms")
+    require(not failed, f"bf16-activation kernels round as their plain version ({failed})")
+    return worst, sums, per_step
+
+
+def phase_bf16_act(torch, smi, model, live, ckpt_dir: Path):
+    """Phase 35: the bf16-activation DenseBlock (``db_bf16_act``, with the
+    shipped ``db_k_stack_max_ci`` 56).  The kernels vs their plain version at
+    the four block shapes of B=128·256² (c_in 64, 128, 256 and 3: the last
+    keeps its first three layers in f32) and their times
+    (:func:`bf16_act_blocks`).  Then a tuning file under
+    ``build/`` with ``db_bf16_act: true`` through ``$MDIE_SERVING_TUNING``:
+    the serving forward vs the f32 ``CDAN`` (phase 5's limits), serving steps
+    with the counts reset just before (17 bf16-activation launches of 24 a
+    step), the step's time beside the f32-activation step's, and ``-p test``
+    scoring phase 10's checkpoint through it."""
+    import os
+
+    from multi_degradation_image_enhancement_tpu_torch import serving
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_serving_apply
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        LAUNCHES_PER_BLOCK, dense_block,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(36)
+    worst, sums, per_step = bf16_act_blocks(torch, smi, model)
+
+    work = Path("build") / "chip_smoke_bf16act"
+    work.mkdir(parents=True, exist_ok=True)
+    tuning = json.loads((CONFIG.parent / "serving_tuning.json").read_text())
+    tuning.update(db_bf16_act=True, db_k_stack_max_ci=BF16_ACT_K)
+    tuning_path = work / "serving_tuning.json"
+    tuning_path.write_text(json.dumps(tuning))
+    old = os.environ.get("MDIE_SERVING_TUNING")
+    os.environ["MDIE_SERVING_TUNING"] = str(tuning_path)
+    try:
+        x = torch.rand((2, *EVAL_HW, 3), device=dev, generator=g)
+        live = live.to(dev)
+        with torch.inference_mode():
+            err = (build_serving_apply(live, torch.bfloat16, dev)(x) - live(x)).abs()
+        say("bf16_act", f"serving forward with bf16 activations vs f32 CDAN at "
+            f"2x{EVAL_HW[0]}x{EVAL_HW[1]}: max {err.max().item():.3e} (limit 2e-2) mean "
+            f"{err.mean().item():.3e} (limit 2e-3)")
+        require(err.max().item() <= 2e-2 and err.mean().item() <= 2e-3,
+                "bf16-activation serving forward vs module")
+        step, clean = serving.build_pipeline(BENCH_BATCH, BENCH_SIZE, torch.bfloat16, "cuda")
+        gen = torch.Generator().manual_seed(35)
+        step(clean, gen)
+        torch.cuda.synchronize()
+        # The main path of this slice: the counts reset just before, read just after.
+        dense_block.launches = dense_block.bf16_act_launches = 0
+        outs = [step(clean, gen) for _ in range(BF16_ACT_STEPS)]
+        torch.cuda.synchronize()
+        launches = {"dense_block": dense_block.launches,
+                    "dense_block_bf16_act": dense_block.bf16_act_launches}
+        test = _cli_test(torch, "bf16_act", ckpt_dir, env={"MDIE_SERVING_TUNING": str(tuning_path)})
+    finally:
+        if old is None:
+            os.environ.pop("MDIE_SERVING_TUNING", None)
+        else:
+            os.environ["MDIE_SERVING_TUNING"] = old
+    step_f32, _ = serving.build_pipeline(BENCH_BATCH, BENCH_SIZE, torch.bfloat16, "cuda")
+    step_f32(clean, gen)
+    ms = {"f32_act": [], "bf16_act": []}
+    for act in ("f32_act", "bf16_act", "bf16_act", "f32_act"):
+        fn = step if act == "bf16_act" else step_f32
+        ms[act].append(cuda_ms(lambda: fn(clean, gen), 10))
+    want = 4 * LAUNCHES_PER_BLOCK * BF16_ACT_STEPS
+    say("bf16_act", f"{BF16_ACT_STEPS} serving steps B={BENCH_BATCH}x{BENCH_SIZE}^2 with "
+        f"db_bf16_act: launches {launches} (expected {want}, of them {per_step * BF16_ACT_STEPS} "
+        f"bf16-activation); -p test launches {test['launches']}, scores {test['scores']}")
+    say("times", f"[{smi}] serving step B={BENCH_BATCH}x{BENCH_SIZE}^2 bf16: f32 activations "
+        f"{ms['f32_act'][0]:.3f}/{ms['f32_act'][1]:.3f} ms, bf16 activations "
+        f"{ms['bf16_act'][0]:.3f}/{ms['bf16_act'][1]:.3f} ms (in turns, 10 steps each); four "
+        f"DenseBlocks: f32-activation kernels {sums['f32_act']:.3f} ms, bf16-activation "
+        f"{sums['bf16_act']:.3f} ms, plain {sums['plain']:.3f} ms")
+    for out in outs:
+        require(bool(torch.isfinite(out).all()) and out.min().item() >= 0.0
+                and out.max().item() <= 1.0, "bf16-activation step outputs finite, in [0, 1]")
+    require(launches == {"dense_block": want, "dense_block_bf16_act": per_step * BF16_ACT_STEPS},
+            "the serving steps ran the bf16-activation kernels")
+    require(per_step == 17, "17 of 24 launches a step activate in bf16 at db_k_stack_max_ci 56")
+    require(test["launches"]["dense_block_bf16_act"] == per_step * test["batches"],
+            "-p test ran the bf16-activation kernels")
+    return {"max_abs_err": worst, "launches": launches["dense_block_bf16_act"],
+            "ms": sums["bf16_act"], "plain_ms": sums["plain"], "f32_act_ms": sums["f32_act"],
+            "step_ms": {k: sum(v) / 2 for k, v in ms.items()}}
+
+
+def phase_lpips_backbones(torch, smi, shipped):
+    """Phase 36: LPIPS on the VGG16 and SqueezeNet backbones (seeded random
+    frozen weights) on the card against the same module on the CPU at
+    B=4·256x384, f32 with TF32 off; then ``-p test`` with ``lpips: {net:
+    vgg}`` scoring phase 10's checkpoint, and its eval step's ms beside the
+    shipped (alex) one's."""
+    import copy
+
+    from multi_degradation_image_enhancement_tpu_torch.ops.perceptual import (
+        LPIPS, init_frozen_params,
+    )
+
+    gen = torch.Generator().manual_seed(36)
+    x = torch.rand((LPIPS_BATCH, *EVAL_HW, 3), generator=gen)
+    y = (x + 0.1 * torch.randn(x.shape, generator=gen)).clamp(0, 1)
+    for net in ("vgg", "squeeze"):
+        cpu = init_frozen_params(LPIPS(net), f"lpips_{net}.npz")
+        card = copy.deepcopy(cpu).to("cuda")
+        with torch.no_grad():
+            want = cpu(x, y)
+            got = card(x.cuda(), y.cuda()).cpu()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        say("lpips", f"{net}: B={LPIPS_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} card vs CPU, f32, TF32 "
+            f"off: distances {[round(v, 6) for v in got.tolist()]}, max relative |d| {rel:.2e} "
+            "(limit 1e-4)")
+        require(bool(torch.isfinite(got).all()) and rel <= 1e-4, f"LPIPS {net} card vs CPU")
+    vgg = _cli_test(torch, "lpips_vgg", Path(shipped["engine"].model_path), lpips_net="vgg")
+    ms = {}
+    for name, rec in (("alex", shipped), ("vgg", vgg)):
+        e = rec["engine"]
+        eval_step = e._build_eval_step(e._load_for_eval())
+        t_in, t_tgt, t_mask = next(iter(e.dataloader))
+        ms[name] = cuda_ms(lambda: eval_step(t_in, t_tgt, t_mask), 10, 2)
+    say("times", f"[{smi}] eval step B={t_in.shape[0]}x{EVAL_HW[0]}x{EVAL_HW[1]}: lpips alex "
+        f"{ms['alex']:.3f} ms, lpips vgg {ms['vgg']:.3f} ms; -p test with vgg scores "
+        f"{vgg['scores']}")
+    return ms
+
+
+def phase_scan_chunk(torch, smi):
+    """Phase 37: ``train.scan_chunk: 4`` on phase 31's run (noise_synthetic,
+    one epoch of 64 images at B=16: one chunk of 4 steps, bf16, fused,
+    BN recalibration) in this process, against phase 31's two plain runs:
+    its checkpoint restores images as the plain run's bit for bit, or within
+    phase 31's limit max(2e-3, twice the plain runs' own distance) where the
+    card's step does not repeat itself; the growth launches of the plain
+    run; an epoch's ms a step, scan and plain, in turns."""
+    from multi_degradation_image_enhancement_tpu_torch import run
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.growth_train import (
+        growth_layer_bwd, growth_layer_fwd,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.utils.config import load_config
+
+    base = Path("build") / "chip_smoke_scale" / "nccl"
+    work = Path("build") / "chip_smoke_scan"
+    cfg_path = _scale_config(work)
+    cfg = json.loads(cfg_path.read_text())
+    cfg["train"]["scan_chunk"] = SCAN_K
+    cfg_path.write_text(json.dumps(cfg))
+    train = cfg["train"]
+    steps = CLI_IMAGES // train["dataloader"]["args"]["batch_size"]
+    want = (16 * (steps + train["bn_recalibration"]["passes"] * steps), 16 * steps)
+    torch.cuda.synchronize()
+    growth_layer_fwd.launches = growth_layer_bwd.launches = 0
+    engine = run.main(load_config(str(cfg_path), phase="train"))
+    torch.cuda.synchronize()
+    launches = (growth_layer_fwd.launches, growth_layer_bwd.launches)
+    imgs = {n: _restored(torch, d / "weights" / train["model_name"])
+            for n, d in (("scan", work), ("plain", base / "plain"), ("repeat", base / "repeat"))}
+    d_scan = (imgs["scan"] - imgs["plain"]).abs().max().item()
+    d_repeat = (imgs["repeat"] - imgs["plain"]).abs().max().item()
+    limit = max(2e-3, 2.0 * d_repeat)
+    plain_cfg = base / "plain" / "config.json"
+    _, plain = run.build_session(load_config(str(plain_cfg), phase="train"))
+    ms = {"plain": [], "scan": []}
+    for name in ("plain", "scan", "scan", "plain"):
+        e = plain if name == "plain" else engine
+        ms[name].append(cuda_ms(lambda: e._train_epoch(1), 2, 1) / steps)
+    say("scan_chunk", f"[{smi}] scan_chunk {SCAN_K}: {steps} steps B={TRAIN_BATCH}"
+        f"x{EVAL_HW[0]}x{EVAL_HW[1]} bf16 fused; growth launches {launches} (expected {want}); "
+        f"restored images vs phase 31's plain run max |d| {d_scan:.3e} "
+        f"({'bit for bit' if d_scan == 0 else 'not bit for bit'}; plain vs its repeat "
+        f"{d_repeat:.3e}, limit {limit:.3e})")
+    say("times", f"[{smi}] train epoch ms a step (CUDA events over an epoch of {steps} steps, "
+        f"loader included): plain {ms['plain'][0]:.3f}/{ms['plain'][1]:.3f}, scan_chunk "
+        f"{SCAN_K} {ms['scan'][0]:.3f}/{ms['scan'][1]:.3f} (in turns)")
+    require(launches == want, "growth launches of the scan run")
+    require(d_scan <= limit, "scan_chunk restores as the plain run does")
+    return {"d_scan": d_scan, "limit": limit, "ms": {k: sum(v) / 2 for k, v in ms.items()}}
+
+
 WORKERS = {"nccl_train": worker_nccl_train, "gloo_steps": worker_gloo_steps,
            "router": worker_router, "expert_cli": worker_expert_cli}
 
@@ -2995,12 +3392,16 @@ def main() -> int:
     phase_trained_head(torch, smi, pipe_records["art"], clf_runs[CLF_SEEDS[0]]["run_dir"])
     with tf32_defaults(torch) as flags:  # the directory config's CLI as a user runs it
         say("dir_config", f"phase 28 with {flags}")
-        phase_dir_config(torch, smi)
+        dir_record = phase_dir_config(torch, smi)
     phase_remat(torch, smi)
     phase_train_options(torch, smi)
     phase_nccl_world1(torch, smi)
     phase_gloo_steps(torch, smi)
     phase_expert_parallel(torch, smi, pipe_records["art"])
+    phase_host_io(torch, smi, pipe_records, dir_record)
+    bf16_act = phase_bf16_act(torch, smi, model, live, Path(engine.model_path))
+    phase_lpips_backbones(torch, smi, shipped)
+    phase_scan_chunk(torch, smi)
 
     src = f"{PKG}/csrc"
     ref = "multi_degradation_image_enhancement_tpu/ops/pallas"
@@ -3018,6 +3419,7 @@ def main() -> int:
         "fused_dense_block": (*dense_block_work(eval_blocks), "bf16"),
         **probe_work(),
     }
+    work["dense_block_bf16_act"] = work["dense_block"]  # the same four blocks, bf16 activations
     kernels = [
         {"name": "noise_degrade", "route": "cuda", "source": f"{src}/noise.cu",
          "replaces": f"{ref}/noise.py:75", "launches": launches["noise_degrade"],
@@ -3055,6 +3457,11 @@ def main() -> int:
          "replaces": f"{ref}/dense_block.py:56", "launches": fdb_launches,
          "max_abs_err": fdb_err, "ms": fdb_ms["kernel"], "plain_ms": fdb_ms["plain"],
          "library_ms": None},
+        {"name": "dense_block_bf16_act", "route": "cuda", "source": f"{src}/dense_block.cu",
+         "replaces": f"{ref}/dense_block_cm.py:515",  # _kernel2's bf16_act branch
+         "launches": bf16_act["launches"], "max_abs_err": bf16_act["max_abs_err"],
+         "ms": bf16_act["ms"], "plain_ms": bf16_act["plain_ms"], "library_ms": None,
+         "f32_act_ms": bf16_act["f32_act_ms"]},
     ]
     for name, source, replaces in (
             ("probe_matmul_bf16", "probe_matmul.cu", "benchmarks/exp_int8_reprobe.py:39"),
@@ -3073,6 +3480,8 @@ def main() -> int:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.3f} ms"
         if "module_route_ms" in k:
             lib += f", module route {k['module_route_ms']:.3f} ms"
+        if "f32_act_ms" in k:
+            lib += f", f32-activation kernel {k['f32_act_ms']:.3f} ms"
         say("bounds", f"[{smi}] {k['name']}: {flops / 1e9:.1f} GFLOP ({peak}), {nbytes / 1e9:.3f} GB "
             f"-> bound {k['bound_ms']:.4f} ms by {k['bound_by']}; kernel {k['ms']:.3f} ms "
             f"(roofline share {k['bound_ms'] / k['ms']:.1%}), plain {k['plain_ms']:.3f} ms, "

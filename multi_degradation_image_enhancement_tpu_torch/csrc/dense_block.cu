@@ -21,6 +21,13 @@
 // g + bias is rounded to bf16; the transition output is rounded once to x's
 // dtype.  SAME padding applies to the ACTIVATED value: taps outside the
 // image contribute 0, not relu(b) (the `inside` mask at dense_block_cm.py:490).
+// With bf16_act (serving_tuning.json's db_bf16_act, dense_block_cm.py:515-523)
+// the affine and ReLU run in bf16 instead, a and b rounded to bf16: the
+// product rounded, the sum rounded, then the ReLU (Affine8Bf16; two
+// roundings where one fma would make one).  The pack picks it per launch:
+// every transition, and each growth layer whose JAX channel count
+// ceil16(c_in) + 16*i exceeds db_k_stack_max_ci (the K-stacked layers of
+// dense_block_cm.py:532-535 activate in f32 whatever the flag).
 //
 // Bound: 2*9*c_i*G FLOPs a pixel per growth layer and 2*c_tot*c_out for the
 // transition, against x in and out: operations bind (0.700 ms for the four
@@ -139,6 +146,31 @@ struct Affine8 {
   }
 };
 
+// The same in bf16 (bf16_act): relu(bf16(bf16(f*a) + b)), a and b rounded to
+// bf16 once per chunk.  The _rn intrinsics keep the product and the sum two
+// instructions with a rounding each: no contraction into one fma.
+struct Affine8Bf16 {
+  __nv_bfloat162 a[4], b[4];
+  __device__ __forceinline__ void load(const float* pa, const float* pb) {
+    Affine8 f;
+    f.load(pa, pb);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = __floats2bfloat162_rn(f.a[2 * i], f.a[2 * i + 1]);
+      b[i] = __floats2bfloat162_rn(f.b[2 * i], f.b[2 * i + 1]);
+    }
+  }
+  __device__ __forceinline__ uint4 operator()(uint4 raw) const {
+    const auto* f = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const __nv_bfloat162 zero = __float2bfloat162_rn(0.0f);
+    uint4 out;
+    auto* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = __hmax2(__hadd2_rn(__hmul2_rn(f[i], a[i]), b[i]), zero);
+    return out;
+  }
+};
+
 // ------------------------------------------------------------------ entry pass
 // NHWC x [P, c_in] -> channels [0, c_in_pad) of y [P, c_buf], zeros past c_in.
 template <typename T>
@@ -159,7 +191,8 @@ __global__ void nhwc_to_slot_kernel(const T* __restrict__ x, long long P, int c_
 // c_buf]; reads channels [0, ci), writes [ci + 16*og, + 16) of output group
 // og.  a, b: f32 [k_pad]; wk: bf16 [9, 16 * n_groups, k_pad] (tap, output,
 // channel); bias: f32 [16 * n_groups]; k_pad = ci rounded up to 32, zeros
-// past ci.
+// past ci.  Act: the prologue's affine + ReLU (Affine8, or Affine8Bf16).
+template <typename Act>
 __global__ void __launch_bounds__(db::kThreads, 2)
 growth_wgmma_kernel(__nv_bfloat16* feats, int c_buf, int H, int W, int ci, int k_pad,
                     const float* __restrict__ a, const float* __restrict__ b,
@@ -211,7 +244,7 @@ growth_wgmma_kernel(__nv_bfloat16* feats, int c_buf, int H, int W, int ci, int k
         rb[i] = __ldg(reinterpret_cast<const uint4*>(wrow + i * w_step + c0));
   };
   auto stage = [&](int c0) {  // the prologue, once per element, into shared memory
-    Affine8 f;
+    Act f;
     if (c0 + 8 * g < ci) f.load(a + c0 + 8 * g, b + c0 + 8 * g);
 #pragma unroll
     for (int i = 0; i < kGAPer; ++i)
@@ -291,8 +324,8 @@ growth_wgmma_kernel(__nv_bfloat16* feats, int c_buf, int H, int W, int ci, int k
 // grid = (ceil(P / 128), n_pad / BN); block = 256.  feats: [P, c_buf];
 // at, bt: f32 [k_pad]; wt: bf16 [n_pad, k_pad] K-major; bias: f32 [n_pad];
 // k_pad = c_buf rounded up to 32, zeros past c_buf; out: NCHW [B, c_out,
-// HW] or NHWC [P, c_out] of TOut, P = B * HW.
-template <int BN, typename TOut>
+// HW] or NHWC [P, c_out] of TOut, P = B * HW.  Act as for the growth layer.
+template <int BN, typename TOut, typename Act>
 __global__ void __launch_bounds__(db::kThreads)
 transition_wgmma_kernel(const __nv_bfloat16* __restrict__ feats, long long P, int HW, int c_buf,
                         int k_pad, const float* __restrict__ at, const float* __restrict__ bt,
@@ -333,7 +366,7 @@ transition_wgmma_kernel(const __nv_bfloat16* __restrict__ feats, long long P, in
     }
   };
   auto stage = [&](int c0) {
-    Affine8 f;
+    Act f;
     if (c0 + 8 * g < c_buf) f.load(at + c0 + 8 * g, bt + c0 + 8 * g);
 #pragma unroll
     for (int i = 0; i < kTAPer; ++i)
@@ -407,7 +440,7 @@ transition_wgmma_kernel(const __nv_bfloat16* __restrict__ feats, long long P, in
   }
 }
 
-template <int BN>
+template <int BN, typename Act>
 cudaError_t launch_transition(const __nv_bfloat16* feats, long long P, int hw, int c_buf, int k_pad,
                               const float* at, const float* bt, const __nv_bfloat16* wt,
                               const float* bias, int n_pad, int c_out, void* out, int out_bf16,
@@ -416,12 +449,28 @@ cudaError_t launch_transition(const __nv_bfloat16* feats, long long P, int hw, i
   if (tiles > (1ll << 31) - 1 || n_pad / BN > 65535) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(tiles), n_pad / BN);
   if (out_bf16)
-    transition_wgmma_kernel<BN, __nv_bfloat16><<<grid, db::kThreads, 0, s>>>(
+    transition_wgmma_kernel<BN, __nv_bfloat16, Act><<<grid, db::kThreads, 0, s>>>(
         feats, P, hw, c_buf, k_pad, at, bt, wt, bias, c_out, static_cast<__nv_bfloat16*>(out), nhwc);
   else
-    transition_wgmma_kernel<BN, float><<<grid, db::kThreads, 0, s>>>(
+    transition_wgmma_kernel<BN, float, Act><<<grid, db::kThreads, 0, s>>>(
         feats, P, hw, c_buf, k_pad, at, bt, wt, bias, c_out, static_cast<float*>(out), nhwc);
   return cudaGetLastError();
+}
+
+// The transition's N tile from n_pad: 8, 128 when it divides, else 64.
+template <typename Act>
+cudaError_t launch_transition_n(const __nv_bfloat16* feats, long long P, int hw, int c_buf,
+                                int k_pad, const float* at, const float* bt,
+                                const __nv_bfloat16* wt, const float* bias, int n_pad, int c_out,
+                                void* out, int out_bf16, int nhwc, cudaStream_t s) {
+  if (n_pad == 8)
+    return launch_transition<8, Act>(feats, P, hw, c_buf, k_pad, at, bt, wt, bias, n_pad, c_out,
+                                     out, out_bf16, nhwc, s);
+  if (n_pad % 128 == 0)
+    return launch_transition<128, Act>(feats, P, hw, c_buf, k_pad, at, bt, wt, bias, n_pad, c_out,
+                                       out, out_bf16, nhwc, s);
+  return launch_transition<64, Act>(feats, P, hw, c_buf, k_pad, at, bt, wt, bias, n_pad, c_out,
+                                    out, out_bf16, nhwc, s);
 }
 
 }  // namespace
@@ -455,10 +504,10 @@ int mdie_db_entry(const void* x, int x_f32, int nhwc, int batch, int c_in, int h
 // Growth layer: feats bf16 [batch, h, w, c_buf]; reads channels [0, ci),
 // writes [ci, ci + g_pad).  a, b: f32 [k_pad]; wk: bf16 [9, g_pad, k_pad]
 // (tap, output, channel); bias: f32 [g_pad]; k_pad = ci rounded up to 32,
-// g_pad a multiple of 16.
+// g_pad a multiple of 16.  bf16_act: the affine and ReLU in bf16.
 int mdie_db_growth(void* feats, int batch, int h, int w, int c_buf, int ci, int k_pad,
                    const void* a, const void* b, const void* wk, const void* bias, int g_pad,
-                   void* stream) {
+                   int bf16_act, void* stream) {
   if (batch <= 0 || batch > 65535 || h <= 0 || w <= 0 || ci <= 0 || ci % 8 || c_buf % 8 ||
       k_pad % db::kKC || k_pad < ci || k_pad - ci >= db::kKC || g_pad <= 0 || g_pad % db::kGN ||
       ci + g_pad > c_buf)
@@ -467,8 +516,9 @@ int mdie_db_growth(void* feats, int batch, int h, int w, int c_buf, int ci, int 
   const int n_groups = g_pad / db::kGN;
   const long long blocks = (long long)tiles_w * tiles_h * n_groups;
   if (blocks > (1ll << 31) - 1) return static_cast<int>(cudaErrorInvalidValue);
-  growth_wgmma_kernel<<<dim3(static_cast<unsigned>(blocks), batch), db::kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), batch);
+  auto* kernel = bf16_act ? growth_wgmma_kernel<Affine8Bf16> : growth_wgmma_kernel<Affine8>;
+  kernel<<<grid, db::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<__nv_bfloat16*>(feats), c_buf, h, w, ci, k_pad, static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<const __nv_bfloat16*>(wk),
       static_cast<const float*>(bias), n_groups, tiles_w);
@@ -478,10 +528,11 @@ int mdie_db_growth(void* feats, int batch, int h, int w, int c_buf, int ci, int 
 // Transition: feats bf16 [batch, h, w, c_buf]; at, bt: f32 [k_pad]; wt: bf16
 // [n_pad, k_pad]; bias: f32 [n_pad]; k_pad = c_buf rounded up to 32; n_pad
 // 8 or a multiple of 64.  out: [batch, c_out, h, w] (NHWC [batch, h, w,
-// c_out] with nhwc), bf16 if out_bf16 else f32.
+// c_out] with nhwc), bf16 if out_bf16 else f32.  bf16_act: the affine and
+// ReLU in bf16.
 int mdie_db_transition(const void* feats, int batch, int h, int w, int c_buf, int k_pad,
                        const void* at, const void* bt, const void* wt, const void* bias, int n_pad,
-                       int c_out, void* out, int out_bf16, int nhwc, void* stream) {
+                       int c_out, void* out, int out_bf16, int nhwc, int bf16_act, void* stream) {
   if (batch <= 0 || h <= 0 || w <= 0 || c_buf <= 0 || c_buf % 8 || k_pad % db::kKC ||
       k_pad < c_buf || k_pad - c_buf >= db::kKC || c_out <= 0 || c_out > n_pad ||
       (n_pad != 8 && n_pad % 64))
@@ -493,13 +544,12 @@ int mdie_db_transition(const void* feats, int batch, int h, int w, int c_buf, in
   const auto* wf = static_cast<const __nv_bfloat16*>(wt);
   const auto* bi = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MDIE_TRANSITION(BN)                                                                      \
-  return static_cast<int>(launch_transition<BN>(f, P, h * w, c_buf, k_pad, af, bf, wf, bi, n_pad, \
-                                                c_out, out, out_bf16, nhwc, s))
-  if (n_pad == 8) MDIE_TRANSITION(8);
-  if (n_pad % 128 == 0) MDIE_TRANSITION(128);
-  MDIE_TRANSITION(64);
-#undef MDIE_TRANSITION
+  const cudaError_t err =
+      bf16_act ? launch_transition_n<Affine8Bf16>(f, P, h * w, c_buf, k_pad, af, bf, wf, bi, n_pad,
+                                                  c_out, out, out_bf16, nhwc, s)
+               : launch_transition_n<Affine8>(f, P, h * w, c_buf, k_pad, af, bf, wf, bi, n_pad,
+                                              c_out, out, out_bf16, nhwc, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

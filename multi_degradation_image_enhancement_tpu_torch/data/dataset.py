@@ -3,10 +3,11 @@
 
 ``input_root`` (degraded) + ``target_root`` (clean) with the pairing modes
 ``filename`` / ``stem`` / ``sorted`` (an empty pairing raises); images
-decode as RGB through PIL (:func:`_load_rgb`, the JAX package's own path
-when its native decoder is absent; the native decoder is not ported).  The
-datasets return uint8 NumPy arrays; ``data.loader`` batches them, moves them
-to the device and runs the transform there.
+decode as RGB through the native engine (:func:`_load_rgb`,
+``data.io_native``), or through PIL where the engine is unavailable, as in
+the JAX package.  The datasets return uint8 NumPy arrays; ``data.loader``
+batches them (one engine call a batch), moves them to the device and runs
+the transform there.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from PIL import Image
 
+from multi_degradation_image_enhancement_tpu_torch.data import io_native
 from multi_degradation_image_enhancement_tpu_torch.data.transforms import build_transforms
 
 _IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".webp")
@@ -32,7 +34,13 @@ def _list_images(folder: str) -> List[str]:
 
 def _load_rgb(path: str, target_hw: Optional[Tuple[int, int]]) -> np.ndarray:
     """Decode to uint8 RGB [H,W,3]; resized (bilinear) only when its size
-    differs from ``target_hw``."""
+    differs from ``target_hw``.  With a ``target_hw`` the native engine
+    decodes (its bilinear has no antialias, the JAX package's pixels); PIL
+    where the engine is unavailable or the file does not decode there."""
+    if target_hw is not None:
+        native = io_native.decode_image(path, target_hw[0], target_hw[1])
+        if native is not None:
+            return native
     img = Image.open(path).convert("RGB")
     if target_hw is not None and (img.height, img.width) != tuple(target_hw):
         img = img.resize((target_hw[1], target_hw[0]), Image.BILINEAR)

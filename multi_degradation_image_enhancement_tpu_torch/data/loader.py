@@ -16,6 +16,10 @@ Three modes, the JAX loader's:
   ``UnpairedDataset``): decoded one batch ahead as above, then moved to the
   device and transformed there.
 
+Host decoding goes through the native engine (``data.io_native``, one call a
+batch on the pool's thread count) where it is available, else through PIL on
+the pool.
+
 Yields ``(inputs, targets, mask)``: NHWC f32 in the transform's output
 domain and a per-sample validity vector ``[B]`` of {0., 1.}; an unpaired
 dataset yields ``targets`` None.  Every sample is kept; a final partial
@@ -36,6 +40,7 @@ from typing import Any, Callable, Dict, Iterator, Sequence
 import numpy as np
 import torch
 
+from multi_degradation_image_enhancement_tpu_torch.data import io_native
 from multi_degradation_image_enhancement_tpu_torch.ops.degradations import apply_degradation
 
 
@@ -82,9 +87,25 @@ class DeviceDataLoader:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
     def _host_batch(self, idxs: np.ndarray):
-        """Decode a batch on the pool: (inputs, targets) u8 [B,H,W,3], or
-        (inputs, None) for an unpaired dataset or a clean set to degrade."""
-        if self._paired and self._degrade is None:
+        """Decode a batch: (inputs, targets) u8 [B,H,W,3], or (inputs, None)
+        for an unpaired dataset or a clean set to degrade.  With a transform
+        size, one native-engine call on the pool's thread count decodes the
+        whole batch (both halves of a paired batch in one), as the JAX
+        loader does (``loader.py:110-135``); else the pool decodes image by
+        image (``_load_rgb``)."""
+        hw = getattr(self.dataset.transform, "target_hw", None)
+        paired = self._paired and self._degrade is None
+        files = getattr(self.dataset, "files", None)
+        if hw is not None and io_native.available() and (paired or files is not None):
+            if paired:
+                pairs = [self.dataset.pairs[i] for i in idxs]
+                paths = [p[0] for p in pairs] + [p[1] for p in pairs]
+            else:
+                paths = [files[i] for i in idxs]
+            flat = io_native.decode_batch(paths, hw[0], hw[1], n_threads=self._pool._max_workers)
+            if flat is not None:
+                return (flat[:len(idxs)], flat[len(idxs):]) if paired else (flat, None)
+        if paired:
             pairs = list(self._pool.map(self.dataset.load_pair, idxs))
             return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
         return np.stack(list(self._pool.map(self.dataset.load_single, idxs))), None

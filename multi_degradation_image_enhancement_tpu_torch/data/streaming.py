@@ -2,10 +2,12 @@
 of ``multi_degradation_image_enhancement_tpu/data/streaming.py``).
 
 The three stages overlap as in the JAX package: a producer thread decodes
-batch i+1 (PIL) while batch i runs on the device, restored images go to a
-pool of writer threads, and a bounded feed (two batches) keeps host memory
-flat.  :func:`stream_restore` is compute-agnostic: it takes any
-``run_batch(u8_batch) -> (restored u8, aux or None)``.
+batch i+1 (the native engine on its own threads, ``data.io_native``; PIL
+where it is unavailable) while batch i runs on the device, restored images
+go to a pool of writer threads (libpng through the engine, else PIL), and a
+bounded feed (two batches) keeps host memory flat.  :func:`stream_restore`
+is compute-agnostic: it takes any ``run_batch(u8_batch) -> (restored u8,
+aux or None)``.
 """
 
 from __future__ import annotations
@@ -19,11 +21,16 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 from PIL import Image
 
+from multi_degradation_image_enhancement_tpu_torch.data import io_native
 from multi_degradation_image_enhancement_tpu_torch.data.dataset import _load_rgb
 
 
-def decode_chunk(paths: Sequence[str], hw: Tuple[int, int]) -> np.ndarray:
-    """Decode files to one [N, H, W, 3] u8 batch."""
+def decode_chunk(paths: Sequence[str], hw: Tuple[int, int], io_threads: int = 4) -> np.ndarray:
+    """Decode files to one [N, H, W, 3] u8 batch: one engine call on
+    ``io_threads`` threads, or PIL image by image without the engine."""
+    batch = io_native.decode_batch(list(paths), hw[0], hw[1], n_threads=io_threads)
+    if batch is not None:
+        return batch
     return np.stack([_load_rgb(p, hw) for p in paths])
 
 
@@ -60,7 +67,8 @@ def stream_restore(
         try:
             for i in range(0, len(files), batch):
                 chunk = files[i : i + batch]
-                feed.put((chunk, decode_chunk([os.path.join(images_dir, f) for f in chunk], hw)))
+                paths = [os.path.join(images_dir, f) for f in chunk]
+                feed.put((chunk, decode_chunk(paths, hw, io_threads)))
         except BaseException as exc:  # re-raised in the consumer loop
             error = exc
         finally:
@@ -69,7 +77,10 @@ def stream_restore(
     threading.Thread(target=producer, daemon=True).start()
 
     def save_png(img_u8: np.ndarray, path: str) -> None:
-        Image.fromarray(img_u8).save(path)
+        # libpng through the engine (compress level 1), else PIL: the same
+        # pixels either way (lossless).
+        if not io_native.encode_png(path, img_u8):
+            Image.fromarray(img_u8).save(path)
 
     results: List[Tuple[str, Optional[np.ndarray]]] = []
     done = 0

@@ -27,7 +27,9 @@ Activations are in ``dtype`` inside; the forwards take and return NHWC,
 bf16 tolerance at ``dtype=bfloat16`` (the kernels hold features and operands
 in bf16) and to f32 tolerance at ``dtype=float32`` on the CPU with the
 per-block forward (the CM forward's conv1 kernel takes bf16 operands at any
-dtype, as the TPU kernel does).
+dtype, as the TPU kernel does).  The serving tuning file's ``db_bf16_act``
+and ``db_k_stack_max_ci`` reach every DenseBlock pack (:func:`serving_tuning`),
+as the JAX package's ``_DB_BF16_ACT`` reaches its DenseBlock calls.
 
 Inference only: the forwards run under ``torch.inference_mode()`` on frozen
 copies of the weights, and raise when called with grad enabled on an input
@@ -86,14 +88,16 @@ def _fold_all(model: CDAN) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
     return folded
 
 
-def _pack_dense_blocks(model: CDAN, device) -> Dict[str, Any]:
+def _pack_dense_blocks(model: CDAN, device, bf16_act=None, k_stack_max_ci=None) -> Dict[str, Any]:
+    """The four DenseBlocks' packs; ``bf16_act`` / ``k_stack_max_ci`` None:
+    the serving tuning file's (:func:`serving_tuning`)."""
+    tuning = serving_tuning()
+    bf16_act = tuning["db_bf16_act"] if bf16_act is None else bool(bf16_act)
+    k = tuning["db_k_stack_max_ci"] if k_stack_max_ci is None else int(k_stack_max_ci)
     enc, dec = model.encoder, model.decoder
-    return {
-        "dense1": pack_dense_block(enc.dense1, device),
-        "dense2": pack_dense_block(enc.dense2, device),
-        "dense3": pack_dense_block(enc.dense3, device),
-        "final_dense": pack_dense_block(dec.final_dense, device),
-    }
+    blocks = {"dense1": enc.dense1, "dense2": enc.dense2, "dense3": enc.dense3,
+              "final_dense": dec.final_dense}
+    return {name: pack_dense_block(block, device, bf16_act, k) for name, block in blocks.items()}
 
 
 def resolve_device(device) -> torch.device:
@@ -107,12 +111,15 @@ def resolve_device(device) -> torch.device:
 
 @torch.no_grad()
 def build_fast_apply(
-    model: CDAN, dtype=torch.bfloat16, device="cuda"
+    model: CDAN, dtype=torch.bfloat16, device="cuda", bf16_act=None, k_stack_max_ci=None
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build the fused inference forward from an eval ``CDAN``.
 
     Returns ``apply_fn(x_nhwc_01) -> restored`` (f32, NHWC) closing over the
     folded weights and DenseBlock packs, so nothing is repacked per step.
+    ``bf16_act`` / ``k_stack_max_ci``: the DenseBlocks' activations
+    (``ops.cuda.dense_block``); None reads them from the serving tuning file
+    now, as ``cdan_fast.py:489-490`` captures ``_DB_BF16_ACT`` at build time.
     """
     device = resolve_device(device)
     folded = {
@@ -120,7 +127,7 @@ def build_fast_apply(
         for name, (w, b) in _fold_all(model).items()
     }
     dec = model.decoder
-    packs = _pack_dense_blocks(model, device)
+    packs = _pack_dense_blocks(model, device, bf16_act, k_stack_max_ci)
     cbams = {
         name: copy.deepcopy(mod).to(device=device, dtype=dtype).eval().requires_grad_(False)
         for name, mod in (("bottleneck", model.bottleneck), ("cbam1", dec.cbam1),
@@ -223,13 +230,14 @@ _upsample_x2_cm = bilinear_x2
 
 @torch.no_grad()
 def build_fast_apply_cm(
-    model: CDAN, dtype=torch.bfloat16, device="cuda"
+    model: CDAN, dtype=torch.bfloat16, device="cuda", bf16_act=None, k_stack_max_ci=None
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build the all-channel-major inference forward from an eval ``CDAN``
     (``cdan_fast.py:268-377``): conv1 + BN + ReLU + pool through
     ``conv3x3_pool``, the other convs per :data:`_CM_CONV_IMPL` (read now),
     DenseBlocks through the DenseBlock kernel, folded CBAMs.  Same contract
-    as :func:`build_fast_apply`; H a multiple of 8 and W of 16
+    as :func:`build_fast_apply` (``bf16_act`` / ``k_stack_max_ci`` too,
+    ``cdan_fast.py:307-308``); H a multiple of 8 and W of 16
     (:func:`cm_forward_supported`)."""
     device = resolve_device(device)
     impl = dict(_CM_CONV_IMPL)
@@ -243,7 +251,7 @@ def build_fast_apply_cm(
     xla_weights = {name: (folded[name][0].to(device=device, dtype=dtype).contiguous(),
                           folded[name][1].to(device=device, dtype=dtype))
                    for name, v in impl.items() if v == "xla"}
-    packs = _pack_dense_blocks(model, device)
+    packs = _pack_dense_blocks(model, device, bf16_act, k_stack_max_ci)
     dec = model.decoder
     cbams = {name: pack_cbam_cm(mod, device, dtype)
              for name, mod in (("bottleneck", model.bottleneck), ("cbam1", dec.cbam1),
@@ -310,27 +318,38 @@ _TUNING_PATH = (Path(__file__).resolve().parents[2] / "multi_degradation_image_e
                 / "config" / "serving_tuning.json")
 
 
-def serving_prefer_cm() -> bool:
-    """``prefer_cm`` of the JAX package's ``config/serving_tuning.json``, read
-    as a file, or of the file ``$MDIE_SERVING_TUNING`` names, as
-    ``_load_serving_tuning`` (``cdan_fast.py:215-249``) reads it; false when
-    the file is missing.
+def serving_tuning() -> Dict[str, Any]:
+    """The serving tuning the port reads from the JAX package's
+    ``config/serving_tuning.json`` (as a file), or from the file
+    ``$MDIE_SERVING_TUNING`` names, as ``_load_serving_tuning``
+    (``cdan_fast.py:215-249``) reads it: ``prefer_cm`` (false),
+    ``db_bf16_act`` (false) and ``db_k_stack_max_ci`` (0, the JAX kernel's
+    ``_K_STACK_MAX_CI``), those defaults where the file or a key is missing
+    or the file does not parse.
 
-    The file's ``db_k_stack_max_ci`` and ``db_nhwc_io`` pick TPU layouts of
-    the DenseBlock kernel (dx taps stacked on the contraction axis, NHWC
-    blocks transposed in VMEM) that move no rounding point, so they are
-    ignored.  ``db_bf16_act: true`` (the affine and ReLU in bf16) is not
-    ported and raises.
+    ``db_k_stack_max_ci`` picks a TPU layout (dx taps stacked on the
+    contraction axis) that also keeps its layers' activations in f32, so it
+    moves a rounding point only with ``db_bf16_act`` on
+    (``ops.cuda.dense_block``).  ``db_nhwc_io`` (NHWC blocks transposed in
+    VMEM) moves none and is ignored.
     """
+    out = {"prefer_cm": False, "db_bf16_act": False, "db_k_stack_max_ci": 0}
     path = os.environ.get(TUNING_ENV) or str(_TUNING_PATH)
-    if not os.path.isfile(path):
-        return False
-    with open(path, encoding="utf-8") as f:
-        cfg = json.load(f)
-    if cfg.get("db_bf16_act"):
-        raise NotImplementedError(f"{path}: db_bf16_act (bf16 DenseBlock activations) is not "
-                                  "ported to PyTorch")
-    return bool(cfg.get("prefer_cm", False))
+    try:
+        with open(path, encoding="utf-8") as f:
+            cfg = json.load(f)
+    except (OSError, ValueError):
+        return out
+    out["prefer_cm"] = bool(cfg.get("prefer_cm", False))
+    out["db_bf16_act"] = bool(cfg.get("db_bf16_act", False))
+    if cfg.get("db_k_stack_max_ci") is not None:
+        out["db_k_stack_max_ci"] = int(cfg["db_k_stack_max_ci"])
+    return out
+
+
+def serving_prefer_cm() -> bool:
+    """``prefer_cm`` of the serving tuning file (:func:`serving_tuning`)."""
+    return serving_tuning()["prefer_cm"]
 
 
 def build_serving_apply(
@@ -340,13 +359,16 @@ def build_serving_apply(
     CM forward for every image size it takes (:func:`cm_forward_supported`,
     checked per call) and the per-block forward for the rest; without it the
     per-block forward.  ``prefer_cm=None`` reads it from the serving tuning
-    file (:func:`serving_prefer_cm`; false as shipped)."""
+    file (:func:`serving_tuning`; false as shipped); both forwards take the
+    file's ``db_bf16_act`` and ``db_k_stack_max_ci``."""
+    tuning = serving_tuning()
     if prefer_cm is None:
-        prefer_cm = serving_prefer_cm()
-    per_block = build_fast_apply(model, dtype, device)
+        prefer_cm = tuning["prefer_cm"]
+    act = {"bf16_act": tuning["db_bf16_act"], "k_stack_max_ci": tuning["db_k_stack_max_ci"]}
+    per_block = build_fast_apply(model, dtype, device, **act)
     if not prefer_cm:
         return per_block
-    cm = build_fast_apply_cm(model, dtype, device)
+    cm = build_fast_apply_cm(model, dtype, device, **act)
 
     def apply_fn(x_nhwc: torch.Tensor) -> torch.Tensor:
         _, h, w, _ = x_nhwc.shape

@@ -132,8 +132,8 @@ def _declare(lib, ctypes) -> None:
         "mdie_philox_bits": [p, p, i, i64, u32, p],
         # dense_block.cu
         "mdie_db_entry": [p, i, i, i, i, i, i, i, p, i, p],
-        "mdie_db_growth": [p, i, i, i, i, i, i, p, p, p, p, i, p],
-        "mdie_db_transition": [p, i, i, i, i, i, p, p, p, p, i, i, p, i, i, p],
+        "mdie_db_growth": [p, i, i, i, i, i, i, p, p, p, p, i, i, p],
+        "mdie_db_transition": [p, i, i, i, i, i, p, p, p, p, i, i, p, i, i, i, p],
         # growth_train.cu
         "mdie_growth_fwd": [p, i, i, i, i, p, p, p, p, p, p],
         "mdie_growth_bwd": [p, p, i, i, i, i, p, p, p, p, p, p, p, p, p],

@@ -13,10 +13,20 @@ padding (the NHWC entries: NHWC in and out).
 a CUDA tensor it launches an entry pass into an NHWC bf16 concat buffer, one
 growth kernel per layer and one transition kernel, all products on the tensor
 cores (``wgmma``), or raises; ``dense_block.launches`` counts every launch,
-:data:`LAUNCHES_PER_BLOCK` for each of CDAN's blocks.  It is inference only:
-the kernels have no backward, so it raises when grad is enabled and x or a
-pack tensor requires grad, on either device (the trainable growth layer is
-``ops.cuda.growth_train``).
+:data:`LAUNCHES_PER_BLOCK` for each of CDAN's blocks, and
+``dense_block.bf16_act_launches`` those among them that activate in bf16.
+It is inference only: the kernels have no backward, so it raises when grad
+is enabled and x or a pack tensor requires grad, on either device (the
+trainable growth layer is ``ops.cuda.growth_train``).
+
+``bf16_act`` (``serving_tuning.json``'s ``db_bf16_act``,
+``dense_block_cm.py:515-523``) runs the affine and ReLU in bf16, a and b
+rounded to bf16: the product rounded, the sum rounded, then the ReLU; for
+the transition always, for a growth layer only where the JAX kernel's
+channel count ``ceil16(c_in) + 16·i`` exceeds ``k_stack_max_ci`` (the
+K-stacked layers activate in f32 whatever the flag, ``:532-535``).  The
+pack holds both and says per launch (:meth:`DenseBlockPack.layer_bf16_act`);
+the kernel and the plain version round at the same two points.
 
 The kernels read the pack's padded operands (:class:`DenseBlockPack`): the
 NHWC bf16 concat buffer ``[B, H, W, c_buf]`` holds x in channels
@@ -41,6 +51,7 @@ C_ALIGN = 8  # c_in is padded to it: 16 bytes, the kernels' vector load
 G_ALIGN = 16  # growth is padded to it: the growth kernel's wgmma N
 K_CHUNK = 32  # channels of the kernels' K chunk: the K operands are padded to it
 N_WIDE = 64  # the transition's N granule above 8 outputs
+JAX_C_ALIGN = 16  # the JAX kernel pads c_in to 16 (``_ceil16``): its K-stack threshold reads that
 NUM_LAYERS = 4  # growth layers of each of CDAN's DenseBlocks
 # Launches of one DenseBlock call on the card: the entry pass, one growth
 # kernel a layer, the transition.
@@ -73,6 +84,9 @@ class DenseBlockPack:
     ``wtk`` bf16 ``[n_pad, kt_pad]`` with ``kt_pad`` = ``c_buf`` rounded up
     to :data:`K_CHUNK` and ``n_pad`` = c_out padded to 8 (up to 8) or to
     :data:`N_WIDE`; ``biastk`` f32 ``[n_pad]``.
+
+    ``bf16_act`` and ``k_stack_max_ci``: which activations run in bf16
+    (:meth:`layer_bf16_act`, the module docstring).
     """
 
     c_in: int
@@ -85,6 +99,8 @@ class DenseBlockPack:
     bt: torch.Tensor
     wt: torch.Tensor
     biast: torch.Tensor
+    bf16_act: bool = False
+    k_stack_max_ci: int = 0
     chan_index: torch.Tensor = field(init=False)
     ak: List[torch.Tensor] = field(init=False)
     bk: List[torch.Tensor] = field(init=False)
@@ -122,6 +138,17 @@ class DenseBlockPack:
         wtk[:self.c_out, self.chan_index] = self.wt.to(torch.bfloat16)
         self.wtk = wtk
         self.biastk = biases[n, :self.n_pad]
+
+    def layer_bf16_act(self, i: int) -> bool:
+        """Whether growth layer ``i`` (or, for ``i`` = ``num_layers``, the
+        transition) activates in bf16: with ``bf16_act``, the transition
+        always and a growth layer where the JAX kernel's ``ceil16(c_in) +
+        16·i`` channels exceed ``k_stack_max_ci``."""
+        if not self.bf16_act:
+            return False
+        if i == self.num_layers:
+            return True
+        return _round_up(self.c_in, JAX_C_ALIGN) + self.g_pad * i > self.k_stack_max_ci
 
     @property
     def num_layers(self) -> int:
@@ -204,10 +231,12 @@ def _folded(block, device, dtype=None) -> dict:
     return fields
 
 
-def pack_dense_block(block, device=None) -> DenseBlockPack:
+def pack_dense_block(block, device=None, bf16_act: bool = False,
+                     k_stack_max_ci: int = 0) -> DenseBlockPack:
     """Fold a ``models.cdan.DenseBlock``'s BatchNorms (eval statistics) and
     collect its weights for the kernels."""
-    return DenseBlockPack(**_folded(block, device))
+    return DenseBlockPack(**_folded(block, device), bf16_act=bool(bf16_act),
+                          k_stack_max_ci=int(k_stack_max_ci))
 
 
 def require_no_grad(what: str, tensors) -> None:
@@ -223,7 +252,15 @@ def _pack_tensors(pack: DenseBlockPack):
     return [*pack.a, *pack.b, *pack.w, *pack.bias, pack.at, pack.bt, pack.wt, pack.biast]
 
 
-def _activate(feats: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _activate(feats: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              bf16: bool = False) -> torch.Tensor:
+    """relu(f·a + b) per channel: in f32, or with ``bf16`` in bf16 arithmetic
+    (f, a and b rounded to bf16; the product and then the sum rounded, as
+    two operations)."""
+    if bf16:
+        bf = torch.bfloat16
+        prod = feats.to(bf) * a.to(bf)[None, :, None, None]
+        return torch.relu(prod + b.to(bf)[None, :, None, None])
     return torch.relu(feats.float() * a[None, :, None, None] + b[None, :, None, None])
 
 
@@ -233,15 +270,17 @@ def dense_block_plain(x: torch.Tensor, pack: DenseBlockPack) -> torch.Tensor:
     For bf16 x it rounds where the kernel rounds (activated operand, weights,
     each ``g + bias``, the output); for f32 x it is the block in f32.  Convs
     accumulate in f32.  ``F.conv2d``'s zero padding pads the activated value,
-    as the kernel's SAME padding does.
+    as the kernel's SAME padding does.  The activations the pack marks bf16
+    (:meth:`DenseBlockPack.layer_bf16_act`) run in bf16 arithmetic, at any x
+    dtype.
     """
     dt = x.dtype
     feats = x
-    for a, b, w, bias in zip(pack.a, pack.b, pack.w, pack.bias):
-        v = _activate(feats, a, b).to(dt).float()
+    for i, (a, b, w, bias) in enumerate(zip(pack.a, pack.b, pack.w, pack.bias)):
+        v = _activate(feats, a, b, pack.layer_bf16_act(i)).to(dt).float()
         g = F.conv2d(v, w.to(dt).float(), bias, padding=1)
         feats = torch.cat([feats, g.to(dt)], dim=1)
-    vt = _activate(feats, pack.at, pack.bt).to(dt).float()
+    vt = _activate(feats, pack.at, pack.bt, pack.layer_bf16_act(pack.num_layers)).to(dt).float()
     out = F.conv2d(vt, pack.wt.to(dt).float()[:, :, None, None], pack.biast)
     return out.to(dt)
 
@@ -288,17 +327,20 @@ def _dense_block_cuda(x: torch.Tensor, pack: DenseBlockPack, nhwc: bool) -> torc
             err = lib.mdie_db_growth(
                 feats.data_ptr(), bsz, h, w, c_buf, ci, _round_up(ci, K_CHUNK),
                 pack.ak[i].data_ptr(), pack.bk[i].data_ptr(), pack.wk[i].data_ptr(),
-                pack.biask[i].data_ptr(), g_pad, stream,
+                pack.biask[i].data_ptr(), g_pad, int(pack.layer_bf16_act(i)), stream,
             )
             _build.check(err, f"dense_block growth layer {i}")
             dense_block.launches += 1
+            dense_block.bf16_act_launches += int(pack.layer_bf16_act(i))
         err = lib.mdie_db_transition(
             feats.data_ptr(), bsz, h, w, c_buf, kt_pad, pack.atk.data_ptr(), pack.btk.data_ptr(),
             pack.wtk.data_ptr(), pack.biastk.data_ptr(), pack.n_pad, pack.c_out, out.data_ptr(),
-            int(x.dtype == torch.bfloat16), int(nhwc), stream,
+            int(x.dtype == torch.bfloat16), int(nhwc), int(pack.layer_bf16_act(pack.num_layers)),
+            stream,
         )
         _build.check(err, "dense_block transition")
     dense_block.launches += 1
+    dense_block.bf16_act_launches += int(pack.layer_bf16_act(pack.num_layers))
     return out
 
 
@@ -317,11 +359,14 @@ def dense_block(x: torch.Tensor, pack: DenseBlockPack) -> torch.Tensor:
 
 
 dense_block.launches = 0
+dense_block.bf16_act_launches = 0
 
 
-def fused_dense_block_cm(x_nhwc: torch.Tensor, block) -> torch.Tensor:
+def fused_dense_block_cm(x_nhwc: torch.Tensor, block, bf16_act: bool = False,
+                         k_stack_max_ci: int = 0) -> torch.Tensor:
     """Inference DenseBlock from a ``models.cdan.DenseBlock`` module's eval
-    statistics, NHWC ``[B, H, W, c_in]`` in and out.
+    statistics, NHWC ``[B, H, W, c_in]`` in and out; ``bf16_act`` and
+    ``k_stack_max_ci`` as ``_kernel`` takes them (``dense_block_cm.py:148-159``).
 
     Counterpart of ``dense_block_cm.py:773`` ``fused_dense_block_cm``, the
     entry of the row-tiled TPU kernel (``_kernel``, ``_run_cm``).  Its row
@@ -332,7 +377,8 @@ def fused_dense_block_cm(x_nhwc: torch.Tensor, block) -> torch.Tensor:
     buffer as it is and the transition writes NHWC.  ``_kernel`` rounds where
     ``_kernel2`` does, so the plain version is the same.
     """
-    return _nhwc_entry(x_nhwc, pack_dense_block(block, x_nhwc.device), "fused_dense_block_cm")
+    pack = pack_dense_block(block, x_nhwc.device, bf16_act, k_stack_max_ci)
+    return _nhwc_entry(x_nhwc, pack, "fused_dense_block_cm")
 
 
 def _nhwc_entry(x_nhwc: torch.Tensor, pack: DenseBlockPack, what: str) -> torch.Tensor:

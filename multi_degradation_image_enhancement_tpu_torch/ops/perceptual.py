@@ -1,19 +1,24 @@
 """Frozen perceptual feature networks (counterpart of
 ``multi_degradation_image_enhancement_tpu/ops/perceptual.py``): the VGG19
-features of the ``vgg_perceptual`` loss, and LPIPS with the AlexNet backbone.
+features of the ``vgg_perceptual`` loss, and LPIPS with the AlexNet, VGG16
+or SqueezeNet 1.1 backbone.
 
 :class:`VGG19Features` is the first ``num_layers`` ops (default 20) of
 torchvision's ``vgg19().features`` in f32, convs named ``conv_{i}`` by their
 ``features`` index (``perceptual.py:38-69``); NHWC in and out, NCHW inside.
 
 :class:`LPIPS` follows the JAX module (``perceptual.py:215-262``), itself
-torchmetrics' ``LearnedPerceptualImagePatchSimilarity`` with ``net_type
-"alex"`` as the reference feeds it: [0, 1] images used as they are, the
-shift/scale prep, the five ReLU taps of torchvision's ``alexnet().features``
-(:class:`AlexNetFeatures`), per tap the channel unit-normalisation (1e-10
-under the root), the squared difference weighted by ``|lin|`` 1×1 weights,
-the spatial mean, and the sum over taps: per-sample distances ``[B]``.
-Images are NHWC, as in the JAX package; the backbone runs NCHW.
+torchmetrics' ``LearnedPerceptualImagePatchSimilarity`` as the reference
+feeds it: [0, 1] images used as they are, the shift/scale prep, the
+backbone's ReLU taps (``alex``: the five of torchvision's
+``alexnet().features``, :class:`AlexNetFeatures`; ``vgg``: the five of
+``vgg16().features`` at indices 3/8/15/22/29, :class:`VGG16Taps`;
+``squeeze``: the seven of ``squeezenet1_1().features``, :class:`SqueezeTaps`),
+per tap the channel unit-normalisation (1e-10 under the root), the squared
+difference weighted by ``|lin|`` 1×1 weights, the spatial mean, and the sum
+over taps: per-sample distances ``[B]``.  Images are NHWC, as in the JAX
+package; the backbones run NCHW, their convs named by torchvision's feature
+index (``conv_{i}``, ``fire_{i}``).
 
 Weights: :func:`init_frozen_params` loads ``$MDIE_WEIGHTS_DIR/<npz>``,
 whose keys are the JAX package's ``/``-joined Flax paths (``net/conv_0/kernel``
@@ -23,8 +28,7 @@ file it keeps seeded, frozen random weights (status ``"random_frozen"``, one
 warning).  Those random draws are the port's own (JAX's threefry cannot be
 reproduced in torch), so the two packages agree only on loaded or
 carried-over weights (``utils.jax_port.load_feature_net``).  Nothing
-is downloaded.  The VGG16 and SqueezeNet LPIPS backbones are not ported
-(ROADMAP.md, queue 1).
+is downloaded.
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-LPIPS_CHANNELS: Dict[str, Tuple[int, ...]] = {"alex": (64, 192, 384, 256, 256)}
+LPIPS_CHANNELS: Dict[str, Tuple[int, ...]] = {
+    "alex": (64, 192, 384, 256, 256),
+    "vgg": (64, 128, 256, 512, 512),
+    "squeeze": (64, 128, 256, 384, 384, 512, 512),
+}
 
 # torchvision vgg19.features: index -> (kind, out_channels)
 _VGG19_LAYOUT: Tuple[Tuple[str, int], ...] = (
@@ -105,17 +113,113 @@ class AlexNetFeatures(nn.Module):
         return t0, t1, t2, t3, t4
 
 
+def _max_pool_ceil(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """torch's ``MaxPool2d(window, stride, ceil_mode=True)`` as the JAX
+    package computes it (``perceptual.py:101-112``): where a side exceeds
+    the window, −inf rows / columns on the bottom / right up to the next
+    stride, then a VALID pool.  NCHW."""
+    h, w = x.shape[2], x.shape[3]
+    pad_h = (-(h - window)) % stride if h > window else 0
+    pad_w = (-(w - window)) % stride if w > window else 0
+    if pad_h or pad_w:
+        x = F.pad(x, (0, pad_w, 0, pad_h), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+class VGG16Taps(nn.Module):
+    """torchvision ``vgg16().features`` up to index 29, returning the five
+    LPIPS taps (relu1_2, relu2_2, relu3_3, relu4_3, relu5_3: indices
+    3/8/15/22/29)."""
+
+    LAYOUT: Tuple[Tuple[str, int], ...] = (
+        ("conv", 64), ("relu", 0), ("conv", 64), ("relu", 0), ("pool", 0),
+        ("conv", 128), ("relu", 0), ("conv", 128), ("relu", 0), ("pool", 0),
+        ("conv", 256), ("relu", 0), ("conv", 256), ("relu", 0), ("conv", 256),
+        ("relu", 0), ("pool", 0),
+        ("conv", 512), ("relu", 0), ("conv", 512), ("relu", 0), ("conv", 512),
+        ("relu", 0), ("pool", 0),
+        ("conv", 512), ("relu", 0), ("conv", 512), ("relu", 0), ("conv", 512),
+        ("relu", 0),
+    )
+    TAPS: Tuple[int, ...] = (3, 8, 15, 22, 29)
+
+    def __init__(self):
+        super().__init__()
+        c_in = 3
+        for i, (kind, ch) in enumerate(self.LAYOUT):
+            if kind == "conv":
+                setattr(self, f"conv_{i}", nn.Conv2d(c_in, ch, 3, padding=1))
+                c_in = ch
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        taps = []
+        for i, (kind, _) in enumerate(self.LAYOUT):
+            if kind == "conv":
+                x = getattr(self, f"conv_{i}")(x)
+            elif kind == "relu":
+                x = torch.relu(x)
+            else:
+                x = F.max_pool2d(x, 2, 2)
+            if i in self.TAPS:
+                taps.append(x)
+        return tuple(taps)
+
+
+class Fire(nn.Module):
+    """SqueezeNet's Fire module: squeeze 1×1, then expand 1×1 ‖ expand 3×3
+    (channels concatenated in that order), each with its ReLU."""
+
+    def __init__(self, c_in: int, squeeze: int, expand: int):
+        super().__init__()
+        self.squeeze = nn.Conv2d(c_in, squeeze, 1)
+        self.expand1x1 = nn.Conv2d(squeeze, expand, 1)
+        self.expand3x3 = nn.Conv2d(squeeze, expand, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = torch.relu(self.squeeze(x))
+        return torch.cat([torch.relu(self.expand1x1(s)), torch.relu(self.expand3x3(s))], dim=1)
+
+
+class SqueezeTaps(nn.Module):
+    """torchvision ``squeezenet1_1().features`` returning the seven LPIPS taps
+    (after indices 1/4/7/9/10/11/12): a stride-2 VALID 3×3 ``conv_0``, Fire
+    modules named by their feature index, and ceil-mode 3×3 stride-2 pools
+    (:func:`_max_pool_ceil`)."""
+
+    FIRES = ((3, 64, 16, 64), (4, 128, 16, 64), (6, 128, 32, 128), (7, 256, 32, 128),
+             (9, 256, 48, 192), (10, 384, 48, 192), (11, 384, 64, 256), (12, 512, 64, 256))
+
+    def __init__(self):
+        super().__init__()
+        self.conv_0 = nn.Conv2d(3, 64, 3, stride=2)
+        for i, c_in, squeeze, expand in self.FIRES:
+            setattr(self, f"fire_{i}", Fire(c_in, squeeze, expand))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        x = torch.relu(self.conv_0(x))
+        taps = [x]
+        for i, _, _, _ in self.FIRES:
+            if i in (3, 6, 9):
+                x = _max_pool_ceil(x, 3, 2)
+            x = getattr(self, f"fire_{i}")(x)
+            if i not in (3, 6):
+                taps.append(x)
+        return tuple(taps)
+
+
+_BACKBONES = {"alex": AlexNetFeatures, "vgg": VGG16Taps, "squeeze": SqueezeTaps}
+
+
 class LPIPS(nn.Module):
-    """LPIPS distance, ``net_type="alex"`` only; ``forward(x, y)`` on NHWC
-    images returns the per-sample distances ``[B]``."""
+    """LPIPS distance, ``net_type`` alex / vgg / squeeze; ``forward(x, y)`` on
+    NHWC images returns the per-sample distances ``[B]``."""
 
     def __init__(self, net_type: str = "alex"):
         super().__init__()
         if net_type not in LPIPS_CHANNELS:
-            raise NotImplementedError(f"LPIPS net_type {net_type!r} is not ported to PyTorch "
-                                      "(alex only; ROADMAP.md, queue 1)")
+            raise ValueError(f"Unknown LPIPS net_type: {net_type!r}")
         self.net_type = net_type
-        self.net = AlexNetFeatures()
+        self.net = _BACKBONES[net_type]()
         for k, c in enumerate(LPIPS_CHANNELS[net_type]):
             setattr(self, f"lin_{k}", nn.Parameter(torch.zeros(c, 1)))
         self.register_buffer("shift", torch.tensor(_LPIPS_SHIFT).reshape(1, 3, 1, 1))

@@ -49,15 +49,21 @@ def _dense_block_entries(flax_prefix: Tuple[str, ...], torch_prefix: str):
     return out
 
 
-def _cbam_entries(flax_prefix: Tuple[str, ...], torch_prefix: str):
-    return [
-        (flax_prefix + ("ChannelGate_0", "fc1"), f"{torch_prefix}.ChannelGate.mlp.1", "linear"),
-        (flax_prefix + ("ChannelGate_0", "fc2"), f"{torch_prefix}.ChannelGate.mlp.3", "linear"),
-        (flax_prefix + ("SpatialGate_0", "spatial", "Conv_0"),
-         f"{torch_prefix}.SpatialGate.spatial.conv", "conv_nobias"),
-        (flax_prefix + ("SpatialGate_0", "spatial", "BatchNorm_0"),
-         f"{torch_prefix}.SpatialGate.spatial.bn", "bn"),
+def _cbam_entries(flax_prefix: Tuple[str, ...], torch_prefix: str, no_spatial: bool = False):
+    """``torch_prefix`` ends with a dot, or is empty for a bare CBAM; a
+    ``no_spatial`` CBAM has no spatial gate on either side."""
+    entries = [
+        (flax_prefix + ("ChannelGate_0", "fc1"), f"{torch_prefix}ChannelGate.mlp.1", "linear"),
+        (flax_prefix + ("ChannelGate_0", "fc2"), f"{torch_prefix}ChannelGate.mlp.3", "linear"),
     ]
+    if not no_spatial:
+        entries += [
+            (flax_prefix + ("SpatialGate_0", "spatial", "Conv_0"),
+             f"{torch_prefix}SpatialGate.spatial.conv", "conv_nobias"),
+            (flax_prefix + ("SpatialGate_0", "spatial", "BatchNorm_0"),
+             f"{torch_prefix}SpatialGate.spatial.bn", "bn"),
+        ]
+    return entries
 
 
 def cdan_mapping():
@@ -70,14 +76,14 @@ def cdan_mapping():
         ]
     for i in range(1, 4):
         entries += _dense_block_entries(("encoder", f"dense{i}"), f"encoder.dense{i}.")
-    entries += _cbam_entries(("bottleneck",), "bottleneck")
+    entries += _cbam_entries(("bottleneck",), "bottleneck.")
     for i in range(1, 5):
         entries += [
             (("decoder", f"de{i}_conv"), f"decoder.conv{i}", "deconv"),
             (("decoder", f"de{i}_bn"), f"decoder.bn{i}", "bn"),
         ]
     for i in range(1, 4):
-        entries += _cbam_entries(("decoder", f"cbam{i}"), f"decoder.cbam{i}")
+        entries += _cbam_entries(("decoder", f"cbam{i}"), f"decoder.cbam{i}.")
     entries += _dense_block_entries(("decoder", "final_dense"), "decoder.final_dense.")
     return entries
 
@@ -161,6 +167,13 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def dense_block_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A Flax ``DenseBlock`` tree → the port's ``DenseBlock`` ``state_dict``."""
     return convert_entries(variables, _dense_block_entries((), ""))
+
+
+def cbam_state_dict(variables: Dict[str, Any], no_spatial: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+    """A Flax ``CBAM`` tree → the port's ``CBAM`` ``state_dict`` (no
+    ``SpatialGate.*`` keys for a ``no_spatial`` CBAM)."""
+    return convert_entries(variables, _cbam_entries((), "", no_spatial))
 
 
 def classifier_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:

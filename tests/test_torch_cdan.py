@@ -181,9 +181,16 @@ def test_serving_apply_dispatches_by_preference_and_shape(port_cdan, tmp_path, m
 
     from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
 
-    calls = []
-    monkeypatch.setattr(cdan_fast, "build_fast_apply_cm", lambda *a: lambda x: calls.append("cm"))
-    monkeypatch.setattr(cdan_fast, "build_fast_apply", lambda *a: lambda x: calls.append("v1"))
+    calls, acts = [], []
+
+    def builder(name):
+        def build(*args, **kw):
+            acts.append((name, kw))
+            return lambda x: calls.append(name)
+        return build
+
+    monkeypatch.setattr(cdan_fast, "build_fast_apply_cm", builder("cm"))
+    monkeypatch.setattr(cdan_fast, "build_fast_apply", builder("v1"))
 
     fn = cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu", prefer_cm=True)
     fn(torch.zeros(1, 32, 48, 3))  # supported -> cm
@@ -206,7 +213,14 @@ def test_serving_apply_dispatches_by_preference_and_shape(port_cdan, tmp_path, m
     assert calls == ["cm"]
     monkeypatch.setenv(cdan_fast.TUNING_ENV, str(tmp_path / "missing.json"))
     assert cdan_fast.serving_prefer_cm() is False
+    # db_bf16_act (and the K-stack threshold it makes a rounding point) reach
+    # both forwards (tests/test_torch_dense_block_bf16act.py holds the math)
     tuning.write_text(json.dumps({"prefer_cm": True, "db_bf16_act": True}))
     monkeypatch.setenv(cdan_fast.TUNING_ENV, str(tuning))
-    with pytest.raises(NotImplementedError, match="db_bf16_act"):
-        cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")
+    acts.clear()
+    cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")
+    assert acts == [(name, {"bf16_act": True, "k_stack_max_ci": 0}) for name in ("v1", "cm")]
+    tuning.write_text(json.dumps({"db_bf16_act": True, "db_k_stack_max_ci": 56}))
+    acts.clear()
+    cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")
+    assert acts == [("v1", {"bf16_act": True, "k_stack_max_ci": 56})]

@@ -191,14 +191,33 @@ def test_missing_transform_block_is_to_tensor():
         assert np.array_equal(got.numpy(), np.asarray(jchain(jnp.asarray(x), jax.random.key(0))))
 
 
-def test_clean_root_images_decode_at_the_transform_size(tmp_path):
-    """``load_single`` decodes a file at the Resize's size (PIL bilinear, the
-    JAX package's path without its native decoder) and one already at that
-    size as it is."""
+def _clean_root_dataset(tmp_path):
     write_clean_pngs(tmp_path, [(32, 48), (20, 30)])
     ds = SyntheticPairedDataset(clean_root=str(tmp_path), transform={
         "backend": "albumentations", "ops": [{"name": "Resize", "args": {"height": 32, "width": 48}}]})
     assert ds.files == [str(tmp_path / "img0.png"), str(tmp_path / "img1.png")]
     first = ds.load_single(0)
     assert first.dtype == np.uint8 and np.array_equal(first, np.asarray(Image.open(ds.files[0])))
-    assert ds.load_single(1).shape == (32, 48, 3)
+    return ds, np.asarray(Image.open(ds.files[1]).convert("RGB"))
+
+
+def test_clean_root_images_decode_at_the_transform_size(tmp_path, monkeypatch):
+    """``load_single`` decodes a file at the Resize's size (PIL bilinear, the
+    JAX package's path without its native decoder: ``MDIE_NATIVE_IO=0``) and
+    one already at that size as it is."""
+    monkeypatch.setenv("MDIE_NATIVE_IO", "0")
+    ds, small = _clean_root_dataset(tmp_path)
+    want = np.asarray(Image.fromarray(small).resize((48, 32), Image.BILINEAR))
+    assert np.array_equal(ds.load_single(1), want)
+
+
+def test_clean_root_images_decode_through_the_native_engine(tmp_path):
+    """The same through the native engine (the JAX package's default): the
+    resized file is the engine's bilinear (its plain version, which
+    tests/test_torch_host_io.py holds to the JAX package's engine)."""
+    from multi_degradation_image_enhancement_tpu_torch.data import io_native
+
+    assert io_native.available(), io_native.build_error()
+    ds, small = _clean_root_dataset(tmp_path)
+    got = ds.load_single(1)
+    assert np.array_equal(got, io_native.resize_bilinear_np(small, 32, 48))

@@ -65,7 +65,9 @@ def test_lpips_alex_with_jax_weights_from_npz(jax_lpips_npz, monkeypatch):
 
 def test_lpips_random_frozen_fallback_and_other_nets(monkeypatch, tmp_path):
     """No npz: the seeded random weights (the same draws every time),
-    status ``random_frozen``; any backbone but alex raises."""
+    status ``random_frozen``, for each backbone; an unknown one raises
+    (tests/test_torch_lpips_backbones.py holds vgg and squeeze against
+    JAX)."""
     monkeypatch.setenv("MDIE_WEIGHTS_DIR", str(tmp_path))
     a = init_frozen_params(LPIPS("alex"), "lpips_alex.npz")
     assert weight_status()["lpips_alex.npz"] == "random_frozen"
@@ -78,8 +80,12 @@ def test_lpips_random_frozen_fallback_and_other_nets(monkeypatch, tmp_path):
     assert d.shape == (2,) and bool(torch.isfinite(d).all()) and float(d.min()) > 0
     assert float(a(torch.from_numpy(x), torch.from_numpy(x)).abs().max()) == 0.0
     for net in ("vgg", "squeeze"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            LPIPS(net)
+        m = init_frozen_params(LPIPS(net), f"lpips_{net}.npz")
+        assert weight_status()[f"lpips_{net}.npz"] == "random_frozen"
+        d = m(torch.from_numpy(x), torch.from_numpy(y))
+        assert d.shape == (2,) and bool(torch.isfinite(d).all()) and float(d.min()) > 0
+    with pytest.raises(ValueError, match="Unknown LPIPS net_type"):
+        LPIPS("resnet")
 
 
 def test_npz_shape_mismatch_raises(tmp_path, monkeypatch):

@@ -339,12 +339,17 @@ def test_load_expert_bank_builds_the_module_route(tmp_path, monkeypatch):
     assert dense_block.launches == n0
 
 
-def test_stream_restore_raises_a_decode_error(tmp_path):
+def test_stream_restore_raises_a_decode_error(tmp_path, monkeypatch):
     """A file that does not decode reaches the caller as its error (the
-    producer's sentinel), instead of leaving the loop waiting for ever."""
+    producer's sentinel), instead of leaving the loop waiting for ever.  On
+    the PIL path (``MDIE_NATIVE_IO=0``), the one that raises, as
+    tests/test_streaming.py forces it: the native engine zero-fills and
+    counts such a file by its contract (the test below)."""
     import threading
 
     from multi_degradation_image_enhancement_tpu_torch.data.streaming import stream_restore
+
+    monkeypatch.setenv("MDIE_NATIVE_IO", "0")
 
     Image.fromarray(np.zeros((*HW, 3), np.uint8)).save(tmp_path / "a.png")
     (tmp_path / "b.png").write_bytes(b"not a png")
@@ -364,6 +369,23 @@ def test_stream_restore_raises_a_decode_error(tmp_path):
     assert len(caught) == 1 and "b.png" in str(caught[0])
     assert (tmp_path / "out" / "a.png").is_file()  # the batch before it was written
 
+
+
+def test_stream_restore_through_the_engine_zero_fills_a_corrupt_file(tmp_path):
+    """Through the native engine the run goes on: the corrupt file's frame is
+    zeros and ``decode_failures`` counts it (the JAX engine's contract)."""
+    from multi_degradation_image_enhancement_tpu_torch.data import io_native
+    from multi_degradation_image_enhancement_tpu_torch.data.streaming import stream_restore
+
+    assert io_native.available(), io_native.build_error()
+    Image.fromarray(np.full((*HW, 3), 200, np.uint8)).save(tmp_path / "a.png")
+    (tmp_path / "b.png").write_bytes(b"not a png")
+    seen, before = [], io_native.decode_failures
+    stream_restore(["a.png", "b.png"], str(tmp_path), str(tmp_path / "out"), hw=HW, batch=2,
+                   run_batch=lambda u8: (seen.append(u8.copy()) or u8, None), io_threads=1)
+    assert io_native.decode_failures == before + 1
+    assert (seen[0][0] == 200).all() and not seen[0][1].any()
+    assert np.array_equal(np.asarray(Image.open(tmp_path / "out" / "b.png")), seen[0][1])
 
 def test_resolve_thresholds_merges_per_class(tmp_path):
     """A run thresholds file lacking some classes falls back to the packaged
