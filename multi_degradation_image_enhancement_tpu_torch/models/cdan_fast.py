@@ -38,11 +38,12 @@ that requires grad (training goes through ``models.cdan.CDAN``).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
 from pathlib import Path
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -175,19 +176,45 @@ def build_fast_apply(
 # ---------------------------------------------------- all-channel-major forward
 
 # Per-layer conv implementation of the CM forward, the JAX package's table
-# (``cdan_fast.py:187-195``) with its keys and all-"xla" defaults: "xla" is
-# ``F.conv2d`` on the folded weights, as the per-block forward runs it;
-# "kernel" is the conv kernel (``ops.cuda.conv_cm.conv3x3``, TPU kernel #8).
-# Read when a forward is built; patch it to A/B the kernel.
+# (``cdan_fast.py:187-195``) with its keys: "xla" is ``F.conv2d`` on the
+# folded weights, as the per-block forward runs it; "kernel" is the conv
+# kernel (``ops.cuda.conv_cm.conv3x3``, TPU kernel #8; its plain version on
+# the CPU).  Defaults follow the in-context A/B on the card: the port's tuner
+# (``benchmarks/tune_serving.py``, ``config/serving_tuning.json``
+# ``cm_conv_ab``, NVIDIA H100 80GB HBM3, 700.00 W, 2026-10-17) timed the CM
+# step at B=128·256² bf16 with every conv on #8 at 27.496 ms against 30.944
+# with every conv on ``F.conv2d`` (27.332 against 30.873 under
+# ``db_bf16_act``).  Read when a forward is built; patch it to A/B the kernel
+# (``cm_conv_table``).
 _CM_CONV_IMPL: Dict[str, str] = {
-    "conv2": "xla",
-    "conv3": "xla",
-    "conv4": "xla",
-    "de1": "xla",
-    "de2": "xla",
-    "de3": "xla",
-    "de4": "xla",
+    "conv2": "kernel",
+    "conv3": "kernel",
+    "conv4": "kernel",
+    "de1": "kernel",
+    "de2": "kernel",
+    "de3": "kernel",
+    "de4": "kernel",
 }
+
+
+def cm_conv_choice() -> str:
+    """:data:`_CM_CONV_IMPL` in one word: "xla" or "kernel" where every
+    entry says so, else "mixed"."""
+    values = set(_CM_CONV_IMPL.values())
+    return values.pop() if len(values) == 1 else "mixed"
+
+
+@contextlib.contextmanager
+def cm_conv_table(impl: str) -> Iterator[None]:
+    """Every entry of :data:`_CM_CONV_IMPL` set to ``impl`` ("xla" or
+    "kernel") for the forwards built inside the block; the table is restored
+    after it."""
+    saved = dict(_CM_CONV_IMPL)
+    _CM_CONV_IMPL.update(dict.fromkeys(saved, impl))
+    try:
+        yield
+    finally:
+        _CM_CONV_IMPL.update(saved)
 
 
 def pack_cbam_cm(cbam, device=None, dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -314,24 +341,29 @@ def cm_forward_supported(h: int, w: int) -> bool:
 
 
 TUNING_ENV = "MDIE_SERVING_TUNING"
-_TUNING_PATH = (Path(__file__).resolve().parents[2] / "multi_degradation_image_enhancement_tpu"
-                / "config" / "serving_tuning.json")
+_TUNING_PATH = Path(__file__).resolve().parents[1] / "config" / "serving_tuning.json"
 
 
 def serving_tuning() -> Dict[str, Any]:
-    """The serving tuning the port reads from the JAX package's
-    ``config/serving_tuning.json`` (as a file), or from the file
-    ``$MDIE_SERVING_TUNING`` names, as ``_load_serving_tuning``
-    (``cdan_fast.py:215-249``) reads it: ``prefer_cm`` (false),
-    ``db_bf16_act`` (false) and ``db_k_stack_max_ci`` (0, the JAX kernel's
-    ``_K_STACK_MAX_CI``), those defaults where the file or a key is missing
-    or the file does not parse.
+    """The serving tuning the port reads from its own
+    ``config/serving_tuning.json``, or from the file ``$MDIE_SERVING_TUNING``
+    names, as ``_load_serving_tuning`` (``cdan_fast.py:215-249``) reads the
+    JAX package's: ``prefer_cm`` (false), ``db_bf16_act`` (false) and
+    ``db_k_stack_max_ci`` (0, the JAX kernel's ``_K_STACK_MAX_CI``), those
+    defaults where the file or a key is missing or the file does not parse.
+    The port's file is written by its tuner on the card
+    (``benchmarks/tune_serving.py``); the JAX package's file holds the TPU's
+    choice and is never read here.
 
     ``db_k_stack_max_ci`` picks a TPU layout (dx taps stacked on the
     contraction axis) that also keeps its layers' activations in f32, so it
     moves a rounding point only with ``db_bf16_act`` on
-    (``ops.cuda.dense_block``).  ``db_nhwc_io`` (NHWC blocks transposed in
-    VMEM) moves none and is ignored.
+    (``ops.cuda.dense_block``).  The JAX file's other keys have no place
+    here: ``db_nhwc_io`` (NHWC blocks transposed in VMEM) moves no rounding
+    point on the card, and ``fused_noise`` / ``fused_noise_bf16`` pick
+    between the noise kernel and a plain draw, while the port's serving step
+    always runs the noise kernel (#1) on the card, since a plain draw on the
+    main path would hide it.
     """
     out = {"prefer_cm": False, "db_bf16_act": False, "db_k_stack_max_ci": 0}
     path = os.environ.get(TUNING_ENV) or str(_TUNING_PATH)
@@ -353,15 +385,18 @@ def serving_prefer_cm() -> bool:
 
 
 def build_serving_apply(
-    model: CDAN, dtype=torch.bfloat16, device="cuda", prefer_cm=None
+    model: CDAN, dtype=torch.bfloat16, device="cuda", prefer_cm=None,
+    tuning: Optional[Dict[str, Any]] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The serving forward (``cdan_fast.py:406-425``): with ``prefer_cm`` the
     CM forward for every image size it takes (:func:`cm_forward_supported`,
     checked per call) and the per-block forward for the rest; without it the
-    per-block forward.  ``prefer_cm=None`` reads it from the serving tuning
-    file (:func:`serving_tuning`; false as shipped); both forwards take the
-    file's ``db_bf16_act`` and ``db_k_stack_max_ci``."""
-    tuning = serving_tuning()
+    per-block forward.  ``tuning`` holds the keys :func:`serving_tuning`
+    returns (None: the serving tuning file; the tuner passes each variant's);
+    ``prefer_cm=None`` takes its ``prefer_cm``, and both forwards take its
+    ``db_bf16_act`` and ``db_k_stack_max_ci``."""
+    if tuning is None:
+        tuning = serving_tuning()
     if prefer_cm is None:
         prefer_cm = tuning["prefer_cm"]
     act = {"bf16_act": tuning["db_bf16_act"], "k_stack_max_ci": tuning["db_k_stack_max_ci"]}

@@ -11,9 +11,9 @@ images (counterpart of the root ``run_pipeline.py``).
 ``--weights-dir`` holds ``CDAN_<task>.pt`` engine weight files.  A missing
 expert is skipped with a warning: images routed to it pass through
 unrestored.  Thresholds merge per class: the classifier run's
-``thresholds_val.json`` beside the checkpoint, then the JAX package's
-packaged ``config/classifier_thresholds.json`` (read as a data file), then
-0.5.  The device is the card unless ``--device cpu``; the pipeline runs in
+``thresholds_val.json`` beside the checkpoint, then the packaged
+``config/classifier_thresholds.json`` (the port's copy of the JAX package's
+file), then 0.5.  The device is the card unless ``--device cpu``; the pipeline runs in
 bf16 on the card and in f32 on the CPU.  Output PNGs are
 ``clip(x·255, 0, 255)`` truncated to uint8, as the JAX CLI writes them.
 
@@ -59,8 +59,9 @@ from multi_degradation_image_enhancement_tpu_torch.pipeline import (
     load_expert_bank,
 )
 
-PACKAGED_THRESHOLDS = (Path(__file__).resolve().parents[1] / "multi_degradation_image_enhancement_tpu"
-                       / "config" / "classifier_thresholds.json")
+# The port's copy of the JAX package's packaged thresholds, provenance and
+# all: a trained head's values, not a device's measurement.
+PACKAGED_THRESHOLDS = Path(__file__).resolve().parent / "config" / "classifier_thresholds.json"
 
 
 def resolve_thresholds(classes, packaged_path, run_path):

@@ -4,6 +4,8 @@ One JAX CDAN (16×32, random running stats) is shared by the whole module; its
 weights reach the port through ``utils/jax_port.py``.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +45,17 @@ def port_cdan(jax_cdan):
     return model.eval()
 
 
+@pytest.fixture
+def per_block_tuning(monkeypatch, tmp_path):
+    """The serving forward pinned to the JAX package's served one (per-block,
+    f32 activations), which these tests hold the port against, whatever the
+    port's own tuning file chose on the card."""
+    path = tmp_path / "serving_tuning_per_block.json"
+    path.write_text(json.dumps({"prefer_cm": False, "db_bf16_act": False,
+                                "db_k_stack_max_ci": 56}))
+    monkeypatch.setenv("MDIE_SERVING_TUNING", str(path))
+
+
 def _tree_leaves(tree):
     return jax.tree_util.tree_flatten_with_path(tree)[0]
 
@@ -75,6 +88,7 @@ def test_module_matches_jax(jax_cdan, port_cdan):
     assert np.abs(got - want).max() <= 2e-4  # README.md:34, the reference-transplant bar
 
 
+@pytest.mark.usefixtures("per_block_tuning")
 def test_serving_slice_matches_jax(jax_cdan, port_cdan):
     """Clean batch → noise degrade on the same bits → restoring forward, on
     both sides; the port's forward is ``build_serving_apply`` in f32 (plain
@@ -109,6 +123,7 @@ def test_serving_slice_matches_jax(jax_cdan, port_cdan):
     assert err.max() <= 1e-3 and err.mean() <= 1e-4
 
 
+@pytest.mark.usefixtures("per_block_tuning")
 def test_bf16_serving_forward_matches_jax(jax_cdan, port_cdan):
     """At bf16 the serving forward holds the bf16 bar of tests/test_cdan_fast.py:36-37."""
     x = np.random.RandomState(3).rand(2, H, W, 3).astype(np.float32)
@@ -175,8 +190,8 @@ def test_cm_forward_matches_jax_and_module(live_cdan, conv_impl, monkeypatch):
 def test_serving_apply_dispatches_by_preference_and_shape(port_cdan, tmp_path, monkeypatch):
     """``build_serving_apply``: with ``prefer_cm`` the CM forward for shapes it
     takes and the per-block forward for the rest; without it (the shipped
-    tuning file) always the per-block forward; ``MDIE_SERVING_TUNING`` names
-    another tuning file (tests/test_cdan_fast.py:112-139)."""
+    tuning file, the port's own, says so) always the per-block forward;
+    ``MDIE_SERVING_TUNING`` names another tuning file (tests/test_cdan_fast.py:112-139)."""
     import json
 
     from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
@@ -201,9 +216,10 @@ def test_serving_apply_dispatches_by_preference_and_shape(port_cdan, tmp_path, m
 
     calls.clear()
     monkeypatch.delenv(cdan_fast.TUNING_ENV, raising=False)
-    assert cdan_fast.serving_prefer_cm() is False  # as shipped
+    shipped = json.loads(cdan_fast._TUNING_PATH.read_text())["prefer_cm"]  # the port's own file
+    assert cdan_fast.serving_prefer_cm() is shipped
     cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")(torch.zeros(1, 32, 48, 3))
-    assert calls == ["v1"]
+    assert calls == ["cm" if shipped else "v1"]
 
     tuning = tmp_path / "tuning.json"
     tuning.write_text(json.dumps({"prefer_cm": True, "db_k_stack_max_ci": 56, "db_nhwc_io": True}))

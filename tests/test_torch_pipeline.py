@@ -13,7 +13,8 @@
   JAX pipeline's route) against the JAX bank of ``CDAN(dtype=bfloat16)``,
   held to twice the JAX bank's own bf16-vs-f32 distance, beside the fused
   forward's distance; ``load_expert_bank`` builds the module route;
-* ``resolve_thresholds`` and the u8 conversion of the CLI.
+* ``resolve_thresholds``, the packaged thresholds the CLI reads (the port's
+  copy), and the u8 conversion of the CLI.
 """
 
 import json
@@ -52,6 +53,7 @@ from multi_degradation_image_enhancement_tpu_torch.utils.jax_port import (
     state_dict_to_flax,
 )
 from tests.tiny_net import TinyNet
+from tests.torch_train_cli import ROOT
 from tests.torch_pipeline_cli import (
     EXPERTS,
     HW,
@@ -408,6 +410,24 @@ def test_resolve_thresholds_merges_per_class(tmp_path):
     thr, source = resolve_thresholds(classes, str(tmp_path / "a.json"), str(tmp_path / "b.json"))
     assert thr == [0.5, 0.5, 0.5]
     assert source == "flat 0.5"
+
+
+def test_cli_reads_the_ports_packaged_thresholds(tmp_path, capsys):
+    """With no ``thresholds_val.json`` beside the classifier the CLI routes by
+    the packaged thresholds: the port's copy of the JAX package's file (equal
+    to it, provenance and all), never a path into the JAX package."""
+    jax_file = ROOT / "multi_degradation_image_enhancement_tpu/config/classifier_thresholds.json"
+    port_dir = ROOT / "multi_degradation_image_enhancement_tpu_torch"
+    assert run_pipeline.PACKAGED_THRESHOLDS == port_dir / "config" / "classifier_thresholds.json"
+    assert json.loads(run_pipeline.PACKAGED_THRESHOLDS.read_text()) == json.loads(
+        jax_file.read_text())
+    paths = write_tiny_pipeline(tmp_path)
+    run_pipeline.main(cli_args(paths, tmp_path / "out"))
+    said = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("[pipeline] thresholds")]
+    assert said == [f"[pipeline] thresholds: {run_pipeline.PACKAGED_THRESHOLDS}"]
+    pngs = sorted(p.name for p in (tmp_path / "out").glob("*.png"))
+    assert pngs == ["im0.png", "im1.png", "im2.png"]
 
 
 def test_u8_output_truncates():
