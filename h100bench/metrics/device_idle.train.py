@@ -1,0 +1,3 @@
+"""device_idle.train: 1 − device busy time ÷ wall of the traced window, in %."""
+
+from h100bench.metrics._shared import device_idle as read  # noqa: F401
