@@ -1426,40 +1426,40 @@ def profile_step(torch, smi, engine, steps: int = 3):
 
 def profile_serving(torch, smi, step, clean, steps: int = 5):
     """``torch.profiler`` over ``steps`` serving steps at B=128·256² after a
-    warm-up: device time a step, busy share, and the shares of the growth
-    layers, the transition, the entry pass, the bilinear upsample, the
-    convolutions (cuDNN) and the rest (glue)."""
+    warm-up: device time a step, busy share, and the served forward's device
+    time split by the program's spans (``utils.tracing``): the bilinear
+    upsamples, the CBAMs and the rest of the forward (DenseBlocks, convs,
+    pools, elementwise)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from multi_degradation_image_enhancement_tpu_torch.utils import tracing
 
     gen = torch.Generator().manual_seed(6)
     step(clean, gen)
     torch.cuda.synchronize()
+    tracing.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step(clean, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    spans = {name: ms / steps for name, (_, ms) in tracing.device_totals().items()}
+    tracing.reset()
 
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    groups = {"growth": ("growth_wgmma",), "transition": ("transition_wgmma",),
-              "entry": ("nchw_to_nhwc", "nhwc_to_slot"), "upsample": ("upsample",),
-              "convs": ("conv", "xmma", "cudnn", "implicit_gemm", "gemm")}
-    shares = dict.fromkeys([*groups, "glue"], 0.0)
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        name = e.key.lower()
-        kind = next((k for k, keys in groups.items() if any(s in name for s in keys)), "glue")
-        shares[kind] += device_us(e) / 1e3 / steps
-    total = sum(shares.values())
-    require(total > 0, "the profiler saw device time")
+    total = sum(device_us(e) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")) / 1e3 / steps
+    forward = spans.get("serve/forward", 0.0)
+    require(total > 0 and forward > 0, "the profiler saw device time and the spans the forward")
+    shares = {"upsample": spans.get("cdan/upsample", 0.0), "cbam": spans.get("cdan/cbam", 0.0)}
+    shares["rest of the forward"] = forward - sum(shares.values())
     say("profile", f"[{smi}] serving step B={BENCH_BATCH}x{BENCH_SIZE}^2 bf16 under torch.profiler "
         f"({steps} steps): {total:.3f} ms of kernels a step, {wall_ms:.3f} ms wall, busy share "
-        f"{total / wall_ms:.3f}; " + ", ".join(f"{k} {v:.3f} ms ({v / total:.1%})"
-                                              for k, v in shares.items()))
+        f"{total / wall_ms:.3f}; the forward's device range {forward:.3f} ms: "
+        + ", ".join(f"{k} {v:.3f} ms ({v / forward:.1%})" for k, v in shares.items()))
     return shares
 
 

@@ -1,0 +1,9 @@
+"""cbam_share.serve: the device time of the served forward's four CBAMs
+(``cdan/cbam``) over the forward's own (``serve/forward``), both summed over
+the traced windows, in %."""
+
+from h100bench.metrics._spans import share
+
+
+def read(ctx):
+    return share(ctx, ("cdan/cbam",), "serve/forward")

@@ -30,6 +30,9 @@ Epoch shuffling uses ``np.random.RandomState(seed + epoch)``, as the JAX
 loader does, so both visit samples in the same order.  Each batch draws its
 degradation and augmentation from a ``torch.Generator`` on the device,
 seeded from ``(seed, epoch, batch)``.
+
+The wait for each batch and its device work is the host span
+``data/next_batch`` (``utils.tracing``).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 
 from multi_degradation_image_enhancement_tpu_torch.data import io_native
 from multi_degradation_image_enhancement_tpu_torch.ops.degradations import apply_degradation
+from multi_degradation_image_enhancement_tpu_torch.utils.tracing import span
 
 
 def batch_seed(seed: int, epoch: int, batch: int) -> int:
@@ -125,26 +129,32 @@ class DeviceDataLoader:
             if len(idxs) < bsz:
                 idxs = np.concatenate([idxs, np.full(bsz - len(idxs), idxs[-1])])
             batches.append(idxs)
-        feed = batches if self._clean is not None else prefetch(batches, self._host_batch)
-        transform = self.dataset.transform
-        for bi, (item, n_valid) in enumerate(zip(feed, n_valids)):
-            gen = torch.Generator(device=self.device).manual_seed(batch_seed(self.seed, epoch, bi))
-            mask = (torch.arange(bsz, device=self.device) < n_valid).float()
-            if self._clean is not None:
-                clean = self._clean[torch.from_numpy(item).to(self.device)].float()
-            elif self._degrade is not None:
-                clean = torch.from_numpy(item[0]).to(self.device).float()
-            if self._degrade is not None:
-                degraded = apply_degradation(self._degrade, clean, gen)
-                yield (*transform.apply_paired(degraded, clean, gen), mask)
-                continue
-            inp_u8, tgt_u8 = item
-            inp = torch.from_numpy(inp_u8).to(self.device).float()
-            if tgt_u8 is None:
-                yield transform(inp, gen), None, mask
-                continue
-            tgt = torch.from_numpy(tgt_u8).to(self.device).float()
-            yield (*transform.apply_paired(inp, tgt, gen), mask)
+        feed = iter(batches if self._clean is not None else prefetch(batches, self._host_batch))
+        for bi, n_valid in enumerate(n_valids):
+            with span("data/next_batch"):
+                gen = torch.Generator(device=self.device).manual_seed(
+                    batch_seed(self.seed, epoch, bi))
+                batch = self._device_batch(next(feed), n_valid, gen)
+            yield batch
+
+    def _device_batch(self, item, n_valid: int, gen: torch.Generator):
+        """One yielded ``(inputs, targets, mask)`` from ``item``: the clean
+        set's rows to gather, or a decoded host batch."""
+        bsz, transform = self.batch_size, self.dataset.transform
+        mask = (torch.arange(bsz, device=self.device) < n_valid).float()
+        if self._clean is not None:
+            clean = self._clean[torch.from_numpy(item).to(self.device)].float()
+        elif self._degrade is not None:
+            clean = torch.from_numpy(item[0]).to(self.device).float()
+        if self._degrade is not None:
+            degraded = apply_degradation(self._degrade, clean, gen)
+            return (*transform.apply_paired(degraded, clean, gen), mask)
+        inp_u8, tgt_u8 = item
+        inp = torch.from_numpy(inp_u8).to(self.device).float()
+        if tgt_u8 is None:
+            return transform(inp, gen), None, mask
+        tgt = torch.from_numpy(tgt_u8).to(self.device).float()
+        return (*transform.apply_paired(inp, tgt, gen), mask)
 
 
 def define_dataloader(dataset: Any, dataloader_config: Dict[str, Any], device="cpu"):

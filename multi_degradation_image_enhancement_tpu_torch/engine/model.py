@@ -30,7 +30,10 @@ logger=…)``) and config keys as the JAX engine.  Train phase:
   backward (``models.cdan``);
 * ``logging.profiler`` ``{enabled, trace_epochs}``: each listed epoch
   (1-based) under ``torch.profiler`` (CPU, and CUDA on the card), its Chrome
-  trace written to ``<run_dir>/profile/`` (``model.py:287-291,551-556``);
+  trace written to ``<run_dir>/profile/`` (``model.py:287-291,551-556``)
+  with the port's spans (``utils.tracing``) among its host ops; the epoch's
+  device ranges (count and device ms a span name, ``train/step``,
+  ``train/forward``, ``loss/lpips``, ...) printed beside the trace's path;
 * ``train.bn_recalibration``: after training, ``passes`` frozen-weight
   sweeps of the training data in ``stats_refresh`` mode re-estimate the
   checkpoint's BatchNorm statistics (``model.py:646``);
@@ -109,6 +112,7 @@ from multi_degradation_image_enhancement_tpu_torch.parallel.mesh import (
     shard_batch,
     shard_train_step,
 )
+from multi_degradation_image_enhancement_tpu_torch.utils import tracing
 
 
 def resolve_device(name: Optional[str]) -> torch.device:
@@ -131,22 +135,32 @@ def make_train_step(loss_pipe, precision: str = "fp32"):
 
     Returns ``step(state, inputs, targets, dropout=None, mask=None) -> loss
     dict`` (detached scalars, on the device).  ``dropout`` is a generator on
-    the device or the four keep masks (``models.cdan.Dropout``)."""
+    the device or the four keep masks (``models.cdan.Dropout``).  Spans
+    (``utils.tracing``, device ranges on the card): ``train/step`` around
+    the whole, ``train/forward`` (the autocast forward), ``train/loss``,
+    ``train/backward`` (``zero_grad`` and ``.backward()``) and
+    ``train/optimizer`` (``apply_gradients``) inside it."""
     if precision not in ("bf16", "fp32"):
         raise ValueError(f"train.precision must be 'bf16' or 'fp32', got {precision!r}")
     bf16 = precision == "bf16"
 
     def step(state: TrainState, inputs, targets, dropout=None, mask=None) -> Dict[str, torch.Tensor]:
-        model = state.model
-        model.train()
-        with torch.autocast(inputs.device.type, dtype=torch.bfloat16, enabled=bf16):
-            outputs = model(inputs, dropout)
-        loss_dict = loss_pipe(outputs, targets=targets, inputs=inputs, is_paired=True, mask=mask,
-                              training=True)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss_dict["total"].backward()
-        state.apply_gradients()
-        return {k: v.detach() for k, v in loss_dict.items()}
+        dev = inputs.device
+        with tracing.span("train/step", device=dev):
+            model = state.model
+            model.train()
+            with tracing.span("train/forward", device=dev), torch.autocast(
+                    inputs.device.type, dtype=torch.bfloat16, enabled=bf16):
+                outputs = model(inputs, dropout)
+            with tracing.span("train/loss", device=dev):
+                loss_dict = loss_pipe(outputs, targets=targets, inputs=inputs, is_paired=True,
+                                      mask=mask, training=True)
+            with tracing.span("train/backward", device=dev):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss_dict["total"].backward()
+            with tracing.span("train/optimizer", device=dev):
+                state.apply_gradients()
+            return {k: v.detach() for k, v in loss_dict.items()}
 
     return step
 
@@ -342,7 +356,9 @@ class Model:
         """``torch.profiler`` around epoch ``epoch`` (0-based) when
         ``logging.profiler`` lists it (1-based) and a run dir exists: CPU
         activity, and CUDA activity on the card (which the profiler must
-        support there), exported as ``profile/epoch_NNN.json``."""
+        support there), exported as ``profile/epoch_NNN.json``; the epoch's
+        device ranges (``utils.tracing.device_totals()``) printed beside
+        the path, then reset."""
         run_dir = self.logger.run_dir() if self.logger is not None else None
         if (epoch + 1) not in self.profile_epochs or not run_dir:
             yield
@@ -356,12 +372,18 @@ class Model:
             activities.append(ProfilerActivity.CUDA)
         trace_dir = os.path.join(run_dir, "profile")
         print(f"[PROFILER] tracing epoch {epoch + 1} -> {trace_dir}")
+        tracing.reset()
         with profile(activities=activities) as prof:
             yield
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)  # every kernel of the epoch in the trace
         os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, f"epoch_{epoch + 1:03d}.json"))
+        path = os.path.join(trace_dir, f"epoch_{epoch + 1:03d}.json")
+        prof.export_chrome_trace(path)
+        ranges = ", ".join(f"{name} {ms:.3f} ms over {n}"
+                           for name, (n, ms) in sorted(tracing.device_totals().items()))
+        tracing.reset()
+        print(f"[PROFILER] epoch {epoch + 1}: {path}; device ranges: {ranges or 'none'}")
 
     @torch.no_grad()
     def recalibrate_bn(self, passes: int = 3) -> None:

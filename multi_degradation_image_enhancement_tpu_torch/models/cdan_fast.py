@@ -34,6 +34,10 @@ as the JAX package's ``_DB_BF16_ACT`` reaches its DenseBlock calls.
 Inference only: the forwards run under ``torch.inference_mode()`` on frozen
 copies of the weights, and raise when called with grad enabled on an input
 that requires grad (training goes through ``models.cdan.CDAN``).
+
+Spans (``utils.tracing``, recorded only under a profiler): each call of a
+built forward is ``serve/forward``, each bilinear ×2 ``cdan/upsample`` and
+each CBAM ``cdan/cbam``, device ranges on the card.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
     pack_dense_block,
     require_no_grad,
 )
+from multi_degradation_image_enhancement_tpu_torch.utils.tracing import span
 
 
 def _fold_conv_bn(weight: torch.Tensor, bias: torch.Tensor, bn) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -141,9 +146,13 @@ def build_fast_apply(
         w, b = folded[name]
         return torch.relu(F.conv2d(x, w, b, padding=1))
 
+    def cbam(x: torch.Tensor, name: str) -> torch.Tensor:
+        with span("cdan/cbam", device=x.device):
+            return cbams[name](x)
+
     def apply_fn(x_nhwc: torch.Tensor) -> torch.Tensor:
         require_no_grad("the serving forward", [x_nhwc, *frozen])
-        with torch.inference_mode():
+        with span("serve/forward", device=device), torch.inference_mode():
             return forward(x_nhwc)
 
     def forward(x_nhwc: torch.Tensor) -> torch.Tensor:
@@ -158,15 +167,15 @@ def build_fast_apply(
         out = F.max_pool2d(conv_relu(out, "conv3"), 2)
         d3 = dense_block(out, packs["dense3"])
         skip2 = out
-        out = cbams["bottleneck"](conv_relu(out, "conv4"))
+        out = cbam(conv_relu(out, "conv4"), "bottleneck")
 
-        out = cbams["cbam1"](conv_relu(out, "de1") + skip2)
+        out = cbam(conv_relu(out, "de1") + skip2, "cbam1")
         out = out * d3
-        out = cbams["cbam2"](bilinear_x2(conv_relu(out, "de2")) + skip1)
+        out = cbam(_upsample_x2(conv_relu(out, "de2")) + skip1, "cbam2")
         out = out * d2
-        out = cbams["cbam3"](bilinear_x2(conv_relu(out, "de3")) + skip0)
+        out = cbam(_upsample_x2(conv_relu(out, "de3")) + skip0, "cbam3")
         out = out * d1
-        out = bilinear_x2(conv_relu(out, "de4")) + x  # de4 keeps its ReLU; global residual
+        out = _upsample_x2(conv_relu(out, "de4")) + x  # de4 keeps its ReLU; global residual
         out = torch.sigmoid(dense_block(out.contiguous(), packs["final_dense"]))
         return out.permute(0, 2, 3, 1).float()
 
@@ -241,9 +250,10 @@ def _cbam_cm(x: torch.Tensor, pack: Dict[str, torch.Tensor]) -> torch.Tensor:
     def mlp(v):
         return F.linear(torch.relu(F.linear(v, pack["w1"], pack["b1"])), pack["w2"], pack["b2"])
 
-    x = x * torch.sigmoid(mlp(x.mean(dim=(2, 3))) + mlp(x.amax(dim=(2, 3))))[:, :, None, None]
-    comp = torch.cat([x.amax(dim=1, keepdim=True), x.mean(dim=1, keepdim=True)], dim=1)
-    return x * torch.sigmoid(F.conv2d(comp, pack["k7"], pack["bsp"], padding=3))
+    with span("cdan/cbam", device=x.device):
+        x = x * torch.sigmoid(mlp(x.mean(dim=(2, 3))) + mlp(x.amax(dim=(2, 3))))[:, :, None, None]
+        comp = torch.cat([x.amax(dim=1, keepdim=True), x.mean(dim=1, keepdim=True)], dim=1)
+        return x * torch.sigmoid(F.conv2d(comp, pack["k7"], pack["bsp"], padding=3))
 
 
 def _maxpool2x2_cm(x: torch.Tensor) -> torch.Tensor:
@@ -251,8 +261,10 @@ def _maxpool2x2_cm(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2)
 
 
-# ×2 half-pixel bilinear upsample (``cdan_fast.py:260``), the module's own.
-_upsample_x2_cm = bilinear_x2
+def _upsample_x2(x: torch.Tensor) -> torch.Tensor:
+    """×2 half-pixel bilinear upsample (``cdan_fast.py:260``), the module's own."""
+    with span("cdan/upsample", device=x.device):
+        return bilinear_x2(x)
 
 
 @torch.no_grad()
@@ -296,7 +308,7 @@ def build_fast_apply_cm(
 
     def apply_fn(x_nhwc: torch.Tensor) -> torch.Tensor:
         require_no_grad("the serving forward", [x_nhwc, *frozen])
-        with torch.inference_mode():
+        with span("serve/forward", device=device), torch.inference_mode():
             return forward(x_nhwc)
 
     def forward(x_nhwc: torch.Tensor) -> torch.Tensor:
@@ -315,13 +327,13 @@ def build_fast_apply_cm(
 
         out = _cbam_cm(conv(out, "de1") + skip2, cbams["cbam1"])
         out = out * d3
-        out = _cbam_cm(_upsample_x2_cm(conv(out, "de2")) + skip1, cbams["cbam2"])
+        out = _cbam_cm(_upsample_x2(conv(out, "de2")) + skip1, cbams["cbam2"])
         out = out * d2
-        out = _cbam_cm(_upsample_x2_cm(conv(out, "de3")) + skip0, cbams["cbam3"])
+        out = _cbam_cm(_upsample_x2(conv(out, "de3")) + skip0, cbams["cbam3"])
         out = out * d1
         # de4 has 3 outputs; the TPU kernel pads them to 16 and slices back
         # (:368), the CUDA kernel writes 3.  de4 keeps its ReLU.
-        out = _upsample_x2_cm(conv(out, "de4")) + x  # global residual
+        out = _upsample_x2(conv(out, "de4")) + x  # global residual
         out = torch.sigmoid(dense_block(out, packs["final_dense"]))
         return out.permute(0, 2, 3, 1).float()
 

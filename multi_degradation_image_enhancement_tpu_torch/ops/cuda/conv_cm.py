@@ -50,6 +50,7 @@ from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
     fold_bn,
     require_no_grad,
 )
+from multi_degradation_image_enhancement_tpu_torch.utils.tracing import span
 
 
 K_CHUNK = 64  # input channels of one K step of #8 (c_in is padded to it)
@@ -219,56 +220,58 @@ def _check(x: torch.Tensor, pack: ConvPack, name: str) -> None:
 def conv3x3(x: torch.Tensor, pack: ConvPack, relu: bool = True) -> torch.Tensor:
     """3×3 SAME conv + bias (+ ReLU), NCHW ``[B, c_in, H, W]`` → ``[B, c_out,
     H, W]`` in x's dtype.  CPU: the plain version; CUDA: one kernel launch."""
-    require_no_grad("conv3x3", [x, pack.w_bf16, pack.bias])
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, pack, relu)
-    _check(x, pack, "conv3x3")
-    why = launch_error(x.shape, pack.c_out)
-    if why:
-        raise ValueError(f"conv3x3: {why}")
-    c_out_pad, _, c_in_pad = pack.w_packed.shape
-    _build.require(pack.w_packed, "w_packed", torch.bfloat16,
-                   (_round_up(pack.c_out, C_OUT_ALIGN), 9, _round_up(pack.c_in, K_CHUNK)))
-    bsz, c_in, h, w = x.shape
-    xt = torch.empty((bsz, h, w, _round_up(c_in, 8)), dtype=torch.bfloat16, device=x.device)
-    out = torch.empty((bsz, pack.c_out, h, w), dtype=x.dtype, device=x.device)
-    with _build.on_device(x):
-        err = _build.load().mdie_conv3x3(
-            x.data_ptr(), int(x.dtype == torch.float32), bsz, c_in, h, w, xt.data_ptr(),
-            pack.w_packed.data_ptr(), c_in_pad, c_out_pad, pack.bias.data_ptr(), pack.c_out,
-            int(relu), out.data_ptr(), _build.stream_of(x),
-        )
-    _build.check(err, "conv3x3")
-    conv3x3.launches += 1
-    return out
+    with span("kernel/conv3x3"):
+        require_no_grad("conv3x3", [x, pack.w_bf16, pack.bias])
+        if x.device.type == "cpu":
+            return conv3x3_plain(x, pack, relu)
+        _check(x, pack, "conv3x3")
+        why = launch_error(x.shape, pack.c_out)
+        if why:
+            raise ValueError(f"conv3x3: {why}")
+        c_out_pad, _, c_in_pad = pack.w_packed.shape
+        _build.require(pack.w_packed, "w_packed", torch.bfloat16,
+                       (_round_up(pack.c_out, C_OUT_ALIGN), 9, _round_up(pack.c_in, K_CHUNK)))
+        bsz, c_in, h, w = x.shape
+        xt = torch.empty((bsz, h, w, _round_up(c_in, 8)), dtype=torch.bfloat16, device=x.device)
+        out = torch.empty((bsz, pack.c_out, h, w), dtype=x.dtype, device=x.device)
+        with _build.on_device(x):
+            err = _build.load().mdie_conv3x3(
+                x.data_ptr(), int(x.dtype == torch.float32), bsz, c_in, h, w, xt.data_ptr(),
+                pack.w_packed.data_ptr(), c_in_pad, c_out_pad, pack.bias.data_ptr(), pack.c_out,
+                int(relu), out.data_ptr(), _build.stream_of(x),
+            )
+        _build.check(err, "conv3x3")
+        conv3x3.launches += 1
+        return out
 
 
 def conv3x3_pool(x: torch.Tensor, pack: ConvPack) -> torch.Tensor:
     """3×3 SAME conv + bias + ReLU + 2×2 max-pool, NCHW ``[B, c_in, H, W]``
     (H, W even) → ``[B, c_out, H/2, W/2]`` in x's dtype.  CPU: the plain
     version; CUDA: one kernel launch."""
-    require_no_grad("conv3x3_pool", [x, pack.w_bf16, pack.bias])
-    if x.device.type == "cpu":
-        return conv3x3_pool_plain(x, pack)
-    _check(x, pack, "conv3x3_pool")
-    why = pool_launch_error(x.shape, pack.c_out)
-    if why:
-        raise ValueError(f"conv3x3_pool: {why}")
-    if x.data_ptr() % 16:  # the kernel's copies of x need 16-byte aligned rows
-        x = x.clone()
-    bsz, c_in, h, w = x.shape
-    c_out_pad, k_pad = _round_up(pack.c_out, C_OUT_ALIGN), pool_k_pad(c_in)
-    _build.require(pack.w_pool, "w_pool", torch.bfloat16, (c_out_pad, k_pad))
-    out = torch.empty((bsz, pack.c_out, h // 2, w // 2), dtype=x.dtype, device=x.device)
-    with _build.on_device(x):
-        err = _build.load().mdie_conv3x3_pool(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), bsz, c_in, h, w,
-            pack.w_pool.data_ptr(), k_pad, c_out_pad, pack.bias.data_ptr(), pack.c_out,
-            out.data_ptr(), pool_tile_cols_log2(w // 2), _build.stream_of(x),
-        )
-    _build.check(err, "conv3x3_pool")
-    conv3x3_pool.launches += 1
-    return out
+    with span("kernel/conv3x3_pool"):
+        require_no_grad("conv3x3_pool", [x, pack.w_bf16, pack.bias])
+        if x.device.type == "cpu":
+            return conv3x3_pool_plain(x, pack)
+        _check(x, pack, "conv3x3_pool")
+        why = pool_launch_error(x.shape, pack.c_out)
+        if why:
+            raise ValueError(f"conv3x3_pool: {why}")
+        if x.data_ptr() % 16:  # the kernel's copies of x need 16-byte aligned rows
+            x = x.clone()
+        bsz, c_in, h, w = x.shape
+        c_out_pad, k_pad = _round_up(pack.c_out, C_OUT_ALIGN), pool_k_pad(c_in)
+        _build.require(pack.w_pool, "w_pool", torch.bfloat16, (c_out_pad, k_pad))
+        out = torch.empty((bsz, pack.c_out, h // 2, w // 2), dtype=x.dtype, device=x.device)
+        with _build.on_device(x):
+            err = _build.load().mdie_conv3x3_pool(
+                x.data_ptr(), int(x.dtype == torch.bfloat16), bsz, c_in, h, w,
+                pack.w_pool.data_ptr(), k_pad, c_out_pad, pack.bias.data_ptr(), pack.c_out,
+                out.data_ptr(), pool_tile_cols_log2(w // 2), _build.stream_of(x),
+            )
+        _build.check(err, "conv3x3_pool")
+        conv3x3_pool.launches += 1
+        return out
 
 
 conv3x3.launches = 0

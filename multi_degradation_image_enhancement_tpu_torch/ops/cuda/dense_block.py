@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
+from multi_degradation_image_enhancement_tpu_torch.utils.tracing import span
 
 BN_EPS = 1e-5
 C_ALIGN = 8  # c_in is padded to it: 16 bytes, the kernels' vector load
@@ -352,10 +353,11 @@ def dense_block(x: torch.Tensor, pack: DenseBlockPack) -> torch.Tensor:
     transition launch.  On the CPU: the plain version.  Raises when grad is
     enabled and x or the pack requires grad.
     """
-    require_no_grad("dense_block", [x, *_pack_tensors(pack)])
-    if x.device.type == "cpu":
-        return dense_block_plain(x, pack)
-    return _dense_block_cuda(x, pack, nhwc=False)
+    with span("kernel/dense_block"):
+        require_no_grad("dense_block", [x, *_pack_tensors(pack)])
+        if x.device.type == "cpu":
+            return dense_block_plain(x, pack)
+        return _dense_block_cuda(x, pack, nhwc=False)
 
 
 dense_block.launches = 0
@@ -382,10 +384,11 @@ def fused_dense_block_cm(x_nhwc: torch.Tensor, block, bf16_act: bool = False,
 
 
 def _nhwc_entry(x_nhwc: torch.Tensor, pack: DenseBlockPack, what: str) -> torch.Tensor:
-    require_no_grad(what, [x_nhwc, *_pack_tensors(pack)])
-    if x_nhwc.device.type == "cpu":
-        return dense_block_plain(x_nhwc.permute(0, 3, 1, 2), pack).permute(0, 2, 3, 1)
-    return _dense_block_cuda(x_nhwc, pack, nhwc=True)
+    with span("kernel/dense_block"):
+        require_no_grad(what, [x_nhwc, *_pack_tensors(pack)])
+        if x_nhwc.device.type == "cpu":
+            return dense_block_plain(x_nhwc.permute(0, 3, 1, 2), pack).permute(0, 2, 3, 1)
+        return _dense_block_cuda(x_nhwc, pack, nhwc=True)
 
 
 def fold_dense_block(block, dtype: torch.dtype, device=None) -> DenseBlockPack:

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
 from multi_degradation_image_enhancement_tpu_torch.parallel import collectives
+from multi_degradation_image_enhancement_tpu_torch.utils.tracing import span
 
 GROWTH = 16
 
@@ -127,18 +128,19 @@ def pack_dv_weights(w):
 
 def growth_layer_fwd(x, a, b, w16, bias):
     """Forward kernel: ``g [B, 16, H, W]`` f32 from f32 ``x`` and bf16 OIHW ``w16``."""
-    _check(x, a, b, w16, bias)
-    bsz, c, h, w = x.shape
-    wk = pack_fwd_weights(w16)
-    g = torch.empty((bsz, GROWTH, h, w), dtype=torch.float32, device=x.device)
-    with _build.on_device(x):
-        err = _build.load().mdie_growth_fwd(
-            x.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(), wk.data_ptr(),
-            bias.data_ptr(), g.data_ptr(), _build.stream_of(x),
-        )
-    _build.check(err, "growth_layer forward")
-    growth_layer_fwd.launches += 1
-    return g
+    with span("kernel/growth_fwd"):
+        _check(x, a, b, w16, bias)
+        bsz, c, h, w = x.shape
+        wk = pack_fwd_weights(w16)
+        g = torch.empty((bsz, GROWTH, h, w), dtype=torch.float32, device=x.device)
+        with _build.on_device(x):
+            err = _build.load().mdie_growth_fwd(
+                x.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(), wk.data_ptr(),
+                bias.data_ptr(), g.data_ptr(), _build.stream_of(x),
+            )
+        _build.check(err, "growth_layer forward")
+        growth_layer_fwd.launches += 1
+        return g
 
 
 growth_layer_fwd.launches = 0
@@ -146,27 +148,28 @@ growth_layer_fwd.launches = 0
 
 def growth_layer_bwd(x, dg, a, b, w16):
     """Backward kernels: ``(dx, dw, da, db)``, all f32; ``dw`` is OIHW."""
-    _check(x, a, b, w16)
-    bsz, c, h, w = x.shape
-    _build.require(dg, "dg", torch.float32, (bsz, GROWTH, h, w))
-    lib = _build.load()
-    wdv = pack_dv_weights(w16)
-    dx = torch.empty_like(x)
-    dw = torch.empty((GROWTH, c, 3, 3), dtype=torch.float32, device=x.device)
-    da = torch.empty((c,), dtype=torch.float32, device=x.device)
-    db = torch.empty_like(da)
-    scratch = torch.empty(
-        (lib.mdie_growth_bwd_scratch(bsz, c, h, w),), dtype=torch.float32, device=x.device
-    )
-    with _build.on_device(x):
-        err = lib.mdie_growth_bwd(
-            x.data_ptr(), dg.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(),
-            wdv.data_ptr(), dx.data_ptr(), dw.data_ptr(), da.data_ptr(), db.data_ptr(),
-            scratch.data_ptr(), _build.stream_of(x),
+    with span("kernel/growth_bwd"):
+        _check(x, a, b, w16)
+        bsz, c, h, w = x.shape
+        _build.require(dg, "dg", torch.float32, (bsz, GROWTH, h, w))
+        lib = _build.load()
+        wdv = pack_dv_weights(w16)
+        dx = torch.empty_like(x)
+        dw = torch.empty((GROWTH, c, 3, 3), dtype=torch.float32, device=x.device)
+        da = torch.empty((c,), dtype=torch.float32, device=x.device)
+        db = torch.empty_like(da)
+        scratch = torch.empty(
+            (lib.mdie_growth_bwd_scratch(bsz, c, h, w),), dtype=torch.float32, device=x.device
         )
-    _build.check(err, "growth_layer backward")
-    growth_layer_bwd.launches += 1
-    return dx, dw, da, db
+        with _build.on_device(x):
+            err = lib.mdie_growth_bwd(
+                x.data_ptr(), dg.data_ptr(), bsz, c, h, w, a.data_ptr(), b.data_ptr(),
+                wdv.data_ptr(), dx.data_ptr(), dw.data_ptr(), da.data_ptr(), db.data_ptr(),
+                scratch.data_ptr(), _build.stream_of(x),
+            )
+        _build.check(err, "growth_layer backward")
+        growth_layer_bwd.launches += 1
+        return dx, dw, da, db
 
 
 growth_layer_bwd.launches = 0

@@ -36,6 +36,7 @@ from multi_degradation_image_enhancement_tpu_torch.ops.perceptual import (
 from multi_degradation_image_enhancement_tpu_torch.ops.ssim import masked_mean
 from multi_degradation_image_enhancement_tpu_torch.ops.ssim import ssim as ssim_fn
 from multi_degradation_image_enhancement_tpu_torch.parallel import collectives
+from multi_degradation_image_enhancement_tpu_torch.utils.tracing import span
 
 _SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 _SOBEL_Y = ((-1.0, -2.0, -1.0), (0.0, 0.0, 0.0), (1.0, 2.0, 1.0))
@@ -64,6 +65,9 @@ class LossPipeline:
     (clipped to 1..B) weighted ``s`` and the rest 1, by a threshold on the
     detached losses, so ties at the threshold up-weight more than ``k``
     images (``losses.py:119-157`` as written); ``total`` is the weighted mean.
+
+    Each term's call, or its per-image calls under ``worst_case``, is the
+    span ``loss/<term name>`` (``utils.tracing``; a device range on the card).
     """
 
     def __init__(self, terms: List[LossTerm], worst_case: Optional[Dict[str, Any]] = None):
@@ -84,8 +88,9 @@ class LossPipeline:
         for term in self.terms:
             if (term.mode == "paired" and not is_paired) or (term.mode == "unpaired" and is_paired):
                 continue
-            val = term.fn(outputs=outputs, targets=targets, inputs=inputs, mask=mask)
-            val = val.mean() if val.dim() != 0 else val
+            with span(f"loss/{term.name}", device=outputs.device):
+                val = term.fn(outputs=outputs, targets=targets, inputs=inputs, mask=mask)
+                val = val.mean() if val.dim() != 0 else val
             components[term.name] = val
             total = total + term.weight * val
         components["total"] = total
@@ -112,7 +117,8 @@ class LossPipeline:
         for term in self.terms:
             if term.mode == "unpaired":
                 continue
-            with collectives.unsharded():  # one image's term, as one device computes it
+            with span(f"loss/{term.name}", device=outputs.device), collectives.unsharded():
+                # one image's term, as one device computes it
                 val = torch.stack([
                     term.fn(outputs=outputs[i:i + 1], targets=targets[i:i + 1],
                             inputs=None if inputs is None else inputs[i:i + 1])

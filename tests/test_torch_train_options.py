@@ -417,10 +417,11 @@ def test_engine_picks_the_init_by_torch_init(tmp_path, torch_init, capsys):
 # ------------------------------------------------------------------ profiler
 
 
-def test_profiler_traces_the_listed_epoch_on_the_cpu(tmp_path):
+def test_profiler_traces_the_listed_epoch_on_the_cpu(tmp_path, capsys):
     """``logging.profiler`` {enabled, trace_epochs: [2]}: a CPU CLI run of two
     epochs writes ``profile/epoch_002.json``, a Chrome trace of that epoch's
-    operators, and nothing for epoch 1."""
+    operators and the port's spans, and nothing for epoch 1; the epoch's
+    device ranges (none on the CPU) are printed beside the trace's path."""
     cfg = json.loads(write_tiny_config(tmp_path).read_text())
     cfg["train"]["n_epoch"] = 2
     cfg["train"]["bn_recalibration"] = False
@@ -433,4 +434,6 @@ def test_profiler_traces_the_listed_epoch_on_the_cpu(tmp_path):
     events = json.loads((run_dir / "profile" / "epoch_002.json").read_text())["traceEvents"]
     names = {e.get("name") for e in events}
     assert "aten::convolution" in names and "Optimizer.step#Adam.step" in names
+    assert {"train/step", "train/backward", "data/next_batch"} <= names
+    assert "epoch_002.json; device ranges: none" in capsys.readouterr().out
     assert engine.state.step == 4
