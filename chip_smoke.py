@@ -185,7 +185,14 @@ line per phase, and exits non-zero at the first failure:
     its img/s beside phases 7 and 17;
 40. ``benchmarks/train_throughput`` rows b16 and b16_fused (``--iters 2
     --chunk 4``) in-process, the growth counts reset around it: finite
-    losses, the fused row's growth launches, ms a step beside phase 11's.
+    losses, the fused row's growth launches, ms a step beside phase 11's;
+41. the fused bilinear x2 upsample + add (``ops.cuda.upsample``) vs its
+    plain version at the decoder's three shapes of B=128·256² in bf16 (at
+    most one bf16 step apart), f32 and ragged shapes, the scalar path
+    bit-equal to the vector path on misaligned copies; 3 launches a
+    forward of both built forwards and no aten ``upsample_bilinear2d``
+    kernel in a profiled CM forward; each call's ms (CUDA events) beside
+    its bytes bound, the plain version and aten's ``F.interpolate`` + add.
 
 Phases 1-37 run the forward they were written for, whatever the port's
 tuning file chose on the card (``pin_forward``): per-block with f32
@@ -1461,6 +1468,127 @@ def profile_serving(torch, smi, step, clean, steps: int = 5):
         f"{total / wall_ms:.3f}; the forward's device range {forward:.3f} ms: "
         + ", ".join(f"{k} {v:.3f} ms ({v / forward:.1%})" for k, v in shares.items()))
     return shares
+
+
+# (layer, (batch, c, H, W)) of the decoder's three bilinear x2 inputs at
+# B=128·256²; each output (and the skip or residual added to it) is 2H x 2W.
+UPSAMPLES = [("de2", (BENCH_BATCH, 128, 32, 32)), ("de3", (BENCH_BATCH, 64, 64, 64)),
+             ("de4", (BENCH_BATCH, 3, 128, 128))]
+
+
+def bf16_ulp_gap(torch, a, b):
+    """Elementwise distance of two bf16 tensors in bf16 steps."""
+    def ordered(t):
+        v = t.view(torch.int16).to(torch.int32)
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def upsample_work(shapes, io_bytes=2):
+    """FLOPs and bytes of ``bilinear_x2_add`` calls: x read once, r read
+    once, y written once; about 6 FLOPs an output (the row and column blends
+    a thread shares between its outputs, and the add)."""
+    outputs = sum(b * c * 4 * h * w for b, c, h, w in shapes)
+    inputs = sum(b * c * h * w for b, c, h, w in shapes)
+    return 6 * outputs, (inputs + 2 * outputs) * io_bytes
+
+
+def phase_upsample(torch, smi):
+    """Phase 41: the fused bilinear x2 upsample + add against its plain version;
+    its launch count reset at the start and the phase's total reported (the
+    served forward's own count is phase 38's)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.upsample import (
+        bilinear_x2_add,
+        bilinear_x2_add_plain,
+        vector_path,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    bilinear_x2_add.launches = 0
+
+    def inputs(shape, dtype):
+        b, c, h, w = shape
+        x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        return x, torch.randn((b, c, 2 * h, 2 * w), device=dev, generator=gen).to(dtype)
+
+    def misaligned(t):  # the same values 2 bytes past a 16-byte boundary
+        flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+        view = flat[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    gaps, times, worst = {}, {}, 0
+    for name, shape in UPSAMPLES:
+        x, r = inputs(shape, torch.bfloat16)
+        y = bilinear_x2_add(x, r)
+        require(vector_path(x, r, y), f"{name}: the vector path")
+        gap = bf16_ulp_gap(torch, y, bilinear_x2_add_plain(x, r))
+        torch.cuda.synchronize()
+        gaps[name] = int(gap.max().item())
+        worst = max(worst, gaps[name])
+        exact = (gap == 0).float().mean().item()
+        require(gaps[name] <= 1, f"{name}: kernel within one bf16 step of plain, got {gaps[name]}")
+        ms = cuda_ms(lambda: bilinear_x2_add(x, r), 20)
+        plain_ms = cuda_ms(lambda: bilinear_x2_add_plain(x, r), 5)
+        lib_ms = cuda_ms(lambda: F.interpolate(x, scale_factor=2, mode="bilinear",
+                                               align_corners=False) + r, 5)
+        bound_ms, _ = bound(*upsample_work([shape]), "f32")
+        times[name] = (ms, plain_ms, lib_ms)
+        say("upsample", f"[{smi}] {name} x{list(shape)} bf16: max gap {gaps[name]} bf16 step(s) "
+            f"({exact:.4%} equal); kernel {ms:.4f} ms, bound {bound_ms:.4f} ms (bytes; "
+            f"{bound_ms / ms:.1%}), plain {plain_ms:.3f} ms, aten F.interpolate + add "
+            f"{lib_ms:.3f} ms")
+    x, r = inputs(UPSAMPLES[0][1], torch.bfloat16)
+    x, r = x[:8], r[:8]
+    xs, rs = misaligned(x), misaligned(r)
+    require(not vector_path(xs, rs, rs), "misaligned copies take the scalar path")
+    require(torch.equal(bilinear_x2_add(xs, rs), bilinear_x2_add(x, r)),
+            "the scalar path bit-equal to the vector path")
+    for shape in ((2, 3, 5, 7), (2, 16, 6, 10), (3, 2, 1, 1), (2, 64, 33, 47), (2, 8, 16, 16)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, r = inputs(shape, dtype)
+            got, want = bilinear_x2_add(x, r), bilinear_x2_add_plain(x, r)
+            if dtype == torch.bfloat16:
+                g = int(bf16_ulp_gap(torch, got, want).max().item())
+                require(g <= 1, f"{shape} bf16: within one step of plain, got {g}")
+            else:
+                err = (got - want).abs().max().item()  # N(0, 1) inputs: a few f32 steps
+                require(err <= 1e-5, f"{shape} f32: gap {err:.2e} (limit 1e-5)")
+    say("upsample", "ragged shapes (odd H and W, W not a multiple of 4, 1x1) and f32 vs plain: ok")
+
+    model = live_cdan(torch, 41).to(dev)
+    xi = torch.rand((2, BENCH_SIZE, BENCH_SIZE, 3), device=dev, generator=gen)
+    for builder in ("build_fast_apply", "build_fast_apply_cm"):
+        fwd = getattr(cdan_fast, builder)(model, torch.bfloat16, dev)
+        fwd(xi)
+        n0 = bilinear_x2_add.launches
+        fwd(xi)
+        torch.cuda.synchronize()
+        per_forward = bilinear_x2_add.launches - n0
+        require(per_forward == 3, f"{builder}: 3 launches a forward, got {per_forward}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fwd(xi)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    aten = [k for k in names if "upsample_bilinear2d" in k]
+    fused = [k for k in names if "upsample_add" in k]
+    require(not aten and fused, f"the CM forward's kernels: no aten upsample ({aten}), the fused "
+            f"kernel ({fused})")
+    total = sum(t[0] for t in times.values())
+    bound_all, _ = bound(*upsample_work([s for _, s in UPSAMPLES]), "f32")
+    say("upsample", f"[{smi}] 3 launches a forward (both forwards); the CM forward's device ops "
+        f"name {fused} and no upsample_bilinear2d; the three calls of a B={BENCH_BATCH} batch "
+        f"{total:.4f} ms against their bound {bound_all:.4f} ms ({bound_all / total:.1%}; target "
+        f"<= 0.45 ms), aten F.interpolate + add {sum(t[2] for t in times.values()):.3f} ms")
+    return {"launches": bilinear_x2_add.launches, "max_ulp_gap": worst, "ms": total,
+            "plain_ms": sum(t[1] for t in times.values()),
+            "library_ms": sum(t[2] for t in times.values())}
 
 
 def bound(flops: float, nbytes: float, peak: str = "bf16"):
@@ -3410,9 +3538,10 @@ def _serving_counts(reset: bool = False) -> dict:
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import conv3x3, conv3x3_pool
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.noise import noise_degrade_01
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.upsample import bilinear_x2_add
 
     fns = {"noise_degrade": noise_degrade_01, "dense_block": dense_block,
-           "conv3x3_pool": conv3x3_pool, "conv3x3": conv3x3}
+           "conv3x3_pool": conv3x3_pool, "conv3x3": conv3x3, "bilinear_x2_add": bilinear_x2_add}
     if reset:
         for fn in fns.values():
             fn.launches = 0
@@ -3470,7 +3599,8 @@ def phase_tune_serving(torch, smi, live, ckpt_dir: Path, shipped):
     want = {"noise_degrade": n * per_variant, "dense_block": 4 * LAUNCHES_PER_BLOCK * n * per_variant,
             "conv3x3_pool": per_variant * sum(r["prefer_cm"] for r in results),
             "conv3x3": 7 * per_variant * sum(r["cm_conv"] == "kernel" for r in results),
-            "dense_block_bf16_act": 17 * per_variant * sum(r["db_bf16_act"] for r in results)}
+            "dense_block_bf16_act": 17 * per_variant * sum(r["db_bf16_act"] for r in results),
+            "bilinear_x2_add": 3 * n * per_variant}
     say("tune_serving", f"launches {launches} (expected {want}); winner "
         f"{tune_serving.label(best) if best else None} "
         f"({best['ms_per_step']:.3f} ms/step); shipped file: {shipped_variant}, conv table "
@@ -3657,6 +3787,7 @@ def main() -> int:
     tuned = phase_tune_serving(torch, smi, live, Path(engine.model_path), shipped)
     phase_bench(torch, smi, times, cm_ms)
     train_tp = phase_train_throughput(torch, smi, noise_train_ms)
+    up = phase_upsample(torch, smi)
 
     src = f"{PKG}/csrc"
     ref = "multi_degradation_image_enhancement_tpu/ops/pallas"
@@ -3673,6 +3804,7 @@ def main() -> int:
         "dense_block_tiled": (*dense_block_work([(EVAL_BATCH, 3, *PHOTO_HW)]), "bf16"),
         "fused_dense_block": (*dense_block_work(eval_blocks), "bf16"),
         **probe_work(),
+        "bilinear_x2_add": (*upsample_work([shape for _, shape in UPSAMPLES]), "f32"),
     }
     work["dense_block_bf16_act"] = work["dense_block"]  # the same four blocks, bf16 activations
     kernels = [
@@ -3718,6 +3850,10 @@ def main() -> int:
          "ms": bf16_act["ms"], "plain_ms": bf16_act["plain_ms"], "library_ms": None,
          "f32_act_ms": bf16_act["f32_act_ms"]},
     ]
+    kernels.append({"name": "bilinear_x2_add", "route": "cuda", "source": f"{src}/upsample.cu",
+                    "replaces": None,  # port-only: XLA fuses the JAX decoder's resize + add
+                    "launches": up["launches"], "max_ulp_gap": up["max_ulp_gap"], "ms": up["ms"],
+                    "plain_ms": up["plain_ms"], "library_ms": up["library_ms"]})
     for name, source, replaces in (
             ("probe_matmul_bf16", "probe_matmul.cu", "benchmarks/exp_int8_reprobe.py:39"),
             ("probe_matmul_int8", "probe_matmul.cu", "benchmarks/exp_int8_reprobe.py:39"),
@@ -3731,7 +3867,8 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
     # this slice's entry points (phases 38 and 40), the counts reset just before each
     entry = {**{k: tuned["launches"][k] for k in ("noise_degrade", "dense_block", "conv3x3_pool",
-                                                 "conv3x3", "dense_block_bf16_act")},
+                                                 "conv3x3", "dense_block_bf16_act",
+                                                 "bilinear_x2_add")},
              **train_tp["launches"]}
     for k in kernels:
         if k["name"] in entry:

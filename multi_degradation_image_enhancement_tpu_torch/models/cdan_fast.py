@@ -8,7 +8,10 @@ which picks one of them per image size.  From an eval ``CDAN`` both forwards:
 * fold every conv + BatchNorm pair into one conv (the decoder's
   ``ConvTranspose2d(k3, s1, p1)`` becomes the equivalent 3×3 conv first);
 * run the four DenseBlocks through the DenseBlock kernel
-  (``ops.cuda.dense_block``: CUDA on the card, the plain version on the CPU).
+  (``ops.cuda.dense_block``: CUDA on the card, the plain version on the CPU);
+* run each of the decoder's three bilinear ×2 upsamples together with the
+  skip or residual added after it as one pass of the fused kernel
+  (``ops.cuda.upsample.bilinear_x2_add``), rounded once.
 
 They differ where the JAX package's do.  :func:`build_fast_apply` runs the
 folded convs as ``F.conv2d`` (XLA's convs in the JAX package), conv1's pool
@@ -36,8 +39,8 @@ copies of the weights, and raise when called with grad enabled on an input
 that requires grad (training goes through ``models.cdan.CDAN``).
 
 Spans (``utils.tracing``, recorded only under a profiler): each call of a
-built forward is ``serve/forward``, each bilinear ×2 ``cdan/upsample`` and
-each CBAM ``cdan/cbam``, device ranges on the card.
+built forward is ``serve/forward``, each bilinear ×2 with its add
+``cdan/upsample`` and each CBAM ``cdan/cbam``, device ranges on the card.
 """
 
 from __future__ import annotations
@@ -53,7 +56,6 @@ import torch
 import torch.nn.functional as F
 
 from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
-from multi_degradation_image_enhancement_tpu_torch.models.halo import bilinear_x2
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
     conv3x3,
     conv3x3_pool,
@@ -66,6 +68,7 @@ from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
     pack_dense_block,
     require_no_grad,
 )
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.upsample import bilinear_x2_add
 from multi_degradation_image_enhancement_tpu_torch.utils.tracing import span
 
 
@@ -171,11 +174,11 @@ def build_fast_apply(
 
         out = cbam(conv_relu(out, "de1") + skip2, "cbam1")
         out = out * d3
-        out = cbam(_upsample_x2(conv_relu(out, "de2")) + skip1, "cbam2")
+        out = cbam(_upsample_x2_add(conv_relu(out, "de2"), skip1), "cbam2")
         out = out * d2
-        out = cbam(_upsample_x2(conv_relu(out, "de3")) + skip0, "cbam3")
+        out = cbam(_upsample_x2_add(conv_relu(out, "de3"), skip0), "cbam3")
         out = out * d1
-        out = _upsample_x2(conv_relu(out, "de4")) + x  # de4 keeps its ReLU; global residual
+        out = _upsample_x2_add(conv_relu(out, "de4"), x)  # de4 keeps its ReLU; global residual
         out = torch.sigmoid(dense_block(out.contiguous(), packs["final_dense"]))
         return out.permute(0, 2, 3, 1).float()
 
@@ -261,10 +264,12 @@ def _maxpool2x2_cm(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2)
 
 
-def _upsample_x2(x: torch.Tensor) -> torch.Tensor:
-    """×2 half-pixel bilinear upsample (``cdan_fast.py:260``), the module's own."""
+def _upsample_x2_add(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """×2 half-pixel bilinear upsample of ``x`` plus ``skip``
+    (``cdan_fast.py:260`` and the add after it): one pass of the fused kernel
+    (``ops.cuda.upsample``), rounded once."""
     with span("cdan/upsample", device=x.device):
-        return bilinear_x2(x)
+        return bilinear_x2_add(x, skip)
 
 
 @torch.no_grad()
@@ -327,13 +332,13 @@ def build_fast_apply_cm(
 
         out = _cbam_cm(conv(out, "de1") + skip2, cbams["cbam1"])
         out = out * d3
-        out = _cbam_cm(_upsample_x2(conv(out, "de2")) + skip1, cbams["cbam2"])
+        out = _cbam_cm(_upsample_x2_add(conv(out, "de2"), skip1), cbams["cbam2"])
         out = out * d2
-        out = _cbam_cm(_upsample_x2(conv(out, "de3")) + skip0, cbams["cbam3"])
+        out = _cbam_cm(_upsample_x2_add(conv(out, "de3"), skip0), cbams["cbam3"])
         out = out * d1
         # de4 has 3 outputs; the TPU kernel pads them to 16 and slices back
         # (:368), the CUDA kernel writes 3.  de4 keeps its ReLU.
-        out = _upsample_x2(conv(out, "de4")) + x  # global residual
+        out = _upsample_x2_add(conv(out, "de4"), x)  # global residual
         out = torch.sigmoid(dense_block(out, packs["final_dense"]))
         return out.permute(0, 2, 3, 1).float()
 

@@ -41,6 +41,7 @@ from multi_degradation_image_enhancement_tpu_torch.ops.cuda.probe_transpose impo
     transpose,
     xt_dot_m,
 )
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.upsample import bilinear_x2_add
 from tests.torch_pipeline_cli import cli_args, write_tiny_pipeline
 from multi_degradation_image_enhancement_tpu_torch.classification import train as classifier_train
 from multi_degradation_image_enhancement_tpu_torch.datasets_generation import (
@@ -180,7 +181,8 @@ def test_cuda_without_a_card_raises():
 def _launches():
     return (noise_degrade_01.launches, dense_block.launches, growth_layer_fwd.launches,
             growth_layer_bwd.launches, conv3x3.launches, conv3x3_pool.launches,
-            probe_matmul.launches, m_dot_xt.launches, xt_dot_m.launches, transpose.launches)
+            probe_matmul.launches, m_dot_xt.launches, xt_dot_m.launches, transpose.launches,
+            bilinear_x2_add.launches)
 
 
 def test_plain_path_counts_no_launch():
@@ -205,6 +207,7 @@ def test_plain_path_counts_no_launch():
     eye = torch.eye(64, dtype=torch.bfloat16)
     assert torch.equal(xt_dot_m(m_dot_xt(x, eye), eye), x)
     assert transpose(x).shape == (1, 64, 8)
+    assert bilinear_x2_add(out, torch.rand(1, 64, 8, 8)).shape == (1, 64, 8, 8)
     assert _launches() == n0
 
 

@@ -69,15 +69,17 @@ def test_span_off_is_the_shared_noop_and_records_nothing(monkeypatch):
 @pytest.mark.parametrize("prefer_cm", [False, True], ids=["per_block", "cm"])
 def test_serving_forward_spans_nest_under_the_forward(prefer_cm):
     """Both built forwards: one ``serve/forward`` a call holding 3
-    upsamples, 4 CBAMs and the kernel entry points, all host ops, no user
-    annotation; no device range on the CPU."""
+    upsamples (each around the fused upsample + add's entry), 4 CBAMs and
+    the kernel entry points, all host ops, no user annotation; no device
+    range on the CPU."""
     apply = _serving_apply(prefer_cm)
     x = torch.rand(1, 16, 16, 3)
     apply(x)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         apply(x)
     spans = _spans(prof)
-    want = {"serve/forward": 1, "cdan/upsample": 3, "cdan/cbam": 4, "kernel/dense_block": 4}
+    want = {"serve/forward": 1, "cdan/upsample": 3, "cdan/cbam": 4, "kernel/dense_block": 4,
+            "kernel/bilinear_x2_add": 3}
     if prefer_cm:
         want.update({"kernel/conv3x3": 7, "kernel/conv3x3_pool": 1})
     assert {name: len(events) for name, events in spans.items()} == want
@@ -86,6 +88,8 @@ def test_serving_forward_spans_nest_under_the_forward(prefer_cm):
             assert not e.is_user_annotation, name
             if name != "serve/forward":
                 assert "serve/forward" in _ancestors(e), name
+            if name == "kernel/bilinear_x2_add":
+                assert "cdan/upsample" in _ancestors(e)
     assert tracing.device_totals() == {}
 
 
