@@ -1,7 +1,7 @@
 """A cell as ``BENCHMARK.json`` names it, with everything found by name:
-``configs/<config>.json`` (and the recipe it points to), ``traffic/<mix>.json``,
-``workloads/<cell>.json`` (the limits of ``correct``), and the metrics of
-``BENCHMARK.json`` that the cell reports."""
+``configs/<config>.json`` (and the training recipe it points to, where it
+names one), ``traffic/<mix>.json``, ``workloads/<cell>.json`` (the limits of
+``correct``), and the metrics of ``BENCHMARK.json`` that the cell reports."""
 
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ def load(name: str, cpu_dry_run: bool = False) -> Cell:
     config = _json(HERE / "configs" / f"{entry['config']}.json")
     return Cell(
         name=name, chips=int(entry["chips"]), config=config,
-        recipe=_json(HERE / "configs" / config["recipe"]),
+        recipe=_json(HERE / "configs" / config["recipe"]) if "recipe" in config else {},
         mix=traffic.load(entry["traffic"], cpu_dry_run),
         limits=_json(HERE / "workloads" / f"{name}.json"),
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],

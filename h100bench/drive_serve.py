@@ -164,6 +164,23 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float, lo
     return o
 
 
+def control_readings(cell, seed: int, device, witness: bool = False) -> Dict:
+    """``control``: the reference in FP8 (e4m3 operands, per-tensor scales)
+    in the program's place, over the requests and rows a run keeps for the
+    check.  Serving has no witness reading: ``witness`` is ignored."""
+    pool, state = prepare(cell, seed, device)
+    steps = traffic.sample_steps(seed, cell.mix["sample"])
+    got = {k: (k % len(pool), None) for k in steps}
+    return {"control": serve_numbers(cell, seed, pool, state, got, quant="fp8")}
+
+
+def program_readings(cell, seed: int, device, seconds: float) -> Dict:
+    """The program's own numbers: a whole run with a window of ``seconds``
+    (long enough to serve the requests the check samples)."""
+    out = run(cell, seed, seconds, False, device, time.perf_counter(), lambda msg: None)
+    return {"program": out.readings}
+
+
 def serve_numbers(cell, seed, pool, state, got, quant=None) -> Dict[str, float]:
     """The outputs ``got`` ({request: (pool index, the sampled rows'
     output)}) against the reference's: ``mean_gap``, the mean absolute

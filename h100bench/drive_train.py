@@ -229,3 +229,41 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float, lo
     log("readings " + json.dumps(values))
     o.readings, o.checks = values, checks.judge(values, cell.limits)
     return o
+
+
+def control_readings(cell, seed: int, device, witness: bool = False) -> Dict:
+    """The reference's three set-up steps put in the program's place:
+    ``control`` in FP8 (e4m3 operands, e5m2 gradients, per-tensor scales),
+    ``half_batch`` (each step on half its batch, the mean taken over the
+    rest) and ``unchanged`` (a step that returns its state unchanged: the
+    parameters and statistics left at their start); with ``witness`` also
+    ``bf16_witness``, the reference in bf16, the program's precision."""
+    degraded, clean, state0, perceptual = prepare(cell, seed, device)
+    feed = Feed(seed, cell.mix, degraded, clean, device)
+    batches = [feed(i) for i in range(int(cell.mix["reference_steps"]))]
+    terms, lr = cell.recipe["loss"]["terms"], float(cell.config["train"]["lr"])
+    with exact_f32():
+        ref = train_steps(state0, batches, terms, perceptual, lr)
+        out = {"control": checks.train_numbers(
+                   train_steps(state0, batches, terms, perceptual, lr, quant="fp8"), ref, state0),
+               "half_batch": checks.train_numbers(
+                   train_steps(state0, batches, terms, perceptual, lr, half_batch=True), ref,
+                   state0)}
+        if witness:
+            out["bf16_witness"] = checks.train_numbers(
+                train_steps(state0, batches, terms, perceptual, lr, quant="bf16"), ref, state0)
+    params = {k: state0[k] for k in ref["params"]}
+    still = {"losses": ref["losses"], "grads": {k: torch.zeros_like(v) for k, v in params.items()},
+             "params": params, "buffers": {k: state0[k] for k in ref["buffers"]},
+             "buffers1": {k: state0[k] for k in ref["buffers"]}}
+    out["unchanged"] = checks.train_numbers(still, ref, state0)
+    return out
+
+
+def program_readings(cell, seed: int, device, seconds: float) -> Dict:
+    """The program's own numbers: the set-up steps of the window's step
+    function on the run's state, against the reference; no window, so
+    ``seconds`` is not used."""
+    ses = Trainer(cell, seed, device)
+    ses.free_program(device)
+    return {"program": ses.numbers()}

@@ -3,14 +3,16 @@
     python3 -m h100bench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Loads the cell named in ``BENCHMARK.json`` (its configuration, traffic mix
-and limits are files of their own under ``h100bench/``), makes the inputs and
-weights on the card from ``--seed``, warms up, measures for ``--seconds``,
-checks the timed path's outputs against the plain reference, and prints one
-JSON line last on standard output: ``correct``, ``attempted``, ``failed``,
-``metrics`` (the cell's end-to-end metrics with ``--trace 0``, its per-layer
-metrics with ``--trace 1``), ``device`` and, traced, ``breakdown``; the
-numbers compared, each beside its limit, are the last lines on standard
-error and the last key of the line (``compared``).
+and limits are files of their own under ``h100bench/``) and hands it to the
+driver that its mix's ``kind`` names, ``drive_<kind>.py`` (see ``drivers``),
+which makes the inputs and weights on the card from ``--seed``, warms up,
+measures for ``--seconds`` and checks the timed path's outputs against the
+plain reference.  It prints one JSON line last on standard output:
+``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end
+metrics with ``--trace 0``, its per-layer metrics with ``--trace 1``),
+``device`` and, traced, ``breakdown``; the numbers compared, each beside its
+limit, are the last lines on standard error and the last key of the line
+(``compared``).
 
 Without a CUDA card, or with fewer cards than the cell asks for, it exits
 with 2 and prints no result.  ``--device cpu`` is for the tests only: it
@@ -64,6 +66,7 @@ def main(argv=None) -> int:
     import torch
 
     from h100bench import cell as cells
+    from h100bench import drivers
     from h100bench.outcome import setup_marks
 
     mark = setup_marks(log, T_START)
@@ -85,12 +88,7 @@ def main(argv=None) -> int:
         mark("CUDA context")
     torch.set_num_threads(min(4, os.cpu_count() or 1))
 
-    if cell.kind == "serve":
-        from h100bench import drive_serve as drive
-    elif cell.kind == "train":
-        from h100bench import drive_train as drive
-    else:
-        raise SystemExit(f"unknown traffic kind {cell.kind!r}")
+    drive = drivers.load(cell.kind)
     out = drive.run(cell, args.seed, args.seconds, bool(args.trace), device, T_START, log)
 
     if args.trace:

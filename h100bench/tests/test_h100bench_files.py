@@ -1,6 +1,9 @@
 """Every cell, configuration, traffic mix, limit file and per-layer metric of
 ``BENCHMARK.json`` is found by its name, and the file keeps its
-shape (names, units, bounds, the metrics each cell reports)."""
+shape (names, units, bounds, the metrics each cell reports).  Nothing here
+names today's cells: a cell's kind has a driver file, a cut of a
+configuration is written down beside its published value, and four-chip
+cells stay within a quarter of the cells."""
 
 import json
 import re
@@ -9,7 +12,7 @@ from pathlib import Path
 import pytest
 
 from h100bench import cell as cells
-from h100bench import traces
+from h100bench import drivers, traces
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -17,16 +20,26 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
+def _entry(group, name):
+    return next(e for e in BENCH[group] if e["name"] == name)
+
+
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_cell_loads_by_name(cell):
     c = cells.load(cell)
-    assert c.kind in ("serve", "train")
+    drive = drivers.load(c.kind)  # a kind with no drive_<kind>.py stops here
+    assert all(callable(getattr(drive, f, None)) for f in drivers.EXPORTS)
     names = {m["name"] for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
     assert set(c.limits["numbers"])  # every cell holds limits for correct
     for m in c.per_layer:  # a per-layer metric's cells report the metric it moves
         assert m["moves"] in names
-    assert c.config["reduced"] == []
+    reduced = _entry("configs", _entry("workloads", cell)["config"])["reduced"]
+    assert c.config.get("reduced", []) == reduced
+    for key in reduced:  # each cut names a key the file holds, its published value beside it
+        assert key in c.config and key in c.config["published"], key
+    if reduced:
+        assert isinstance(c.config["deployment"], str) and c.config["deployment"].strip()
     traces.load_readers([m["name"] for m in c.per_layer])
 
 
@@ -53,4 +66,5 @@ def test_names_units_and_bounds():
     for c in BENCH["configs"]:
         assert (ROOT / c["file"]).is_file() and c["file"].startswith("h100bench/")
     assert 1 <= BENCH["run_seconds"] <= 51
-    assert all(w["chips"] == 1 for w in BENCH["workloads"])
+    chips = [w["chips"] for w in BENCH["workloads"]]
+    assert set(chips) <= {1, 4} and chips.count(4) <= max(1, len(chips) // 4)

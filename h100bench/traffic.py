@@ -1,7 +1,13 @@
 """The one traffic generator.  Every mix is a data file,
 ``traffic/<name>.json``, read here; nothing in it is code.
 
-Keys of a mix:
+Every mix holds ``kind``, the name of the driver that runs it: the file
+``drive_<kind>.py`` beside this one (see ``drivers``), not one of a fixed set
+of words.  A mix of a new kind holds ``kind``, ``trace_steps`` (the steps of
+its traced window) and ``cpu_dry_run`` (the sizes its CPU tests run at);
+everything else in it belongs to its driver, which reads it.
+
+Keys of the mixes of ``drive_serve`` and ``drive_train``:
 
 * ``kind``: ``"serve"`` (inference batches through the serving forward) or
   ``"train"`` (optimizer steps);
