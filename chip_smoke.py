@@ -91,11 +91,11 @@ line per phase, and exits non-zero at the first failure:
     ``build/chip_smoke_pipeline/``; the CLI ``run_pipeline`` in top1 and
     severity-ordered sequential mode (B=32), in-process with the counts
     reset around it and as a subprocess; its PNGs against an in-process
-    ``FullPipeline`` (1 LSB), no DenseBlock launch (the experts run the eval
-    module under a bf16 autocast, the JAX pipeline's route), the three top1
-    cases (routed, clean, dropped), the step's times and drop rate with each
-    image routed by its own degradation, and one expert's module and fused
-    routes against the f32 module;
+    ``FullPipeline`` (1 LSB), whole DenseBlocks launched (on the card the
+    experts run the hand-kernel serving forward, as CUDA graphs), the three
+    top1 cases (routed, clean, dropped), the step's times and drop rate with
+    each image routed by its own degradation, and one expert's bank route
+    and eval module under a bf16 autocast against the f32 module;
 25. classifier training on the card: 24 procedural PNGs of odd sizes
     letterboxed by ``datasets_generation.generate_classifier`` (on the card),
     then ``classification.train --dataset_root … --no_pretrained`` for one
@@ -1881,9 +1881,11 @@ def phase_pipeline(torch, smi):
     """Phase 24: the CLI ``run_pipeline`` restores the 64 PNGs on the card
     (B=32, nine experts, bf16), in top1 and in severity-ordered sequential
     mode.  Each mode runs it in-process through ``run_pipeline.main`` with
-    the DenseBlock and expert-forward counts reset just before (no DenseBlock
-    launch: the experts are the eval module, as in the JAX pipeline; and the
-    forwards its own probabilities call for), and as a subprocess (``python
+    the DenseBlock and expert-forward counts reset just before (DenseBlock
+    launches, whole blocks of them: on the card the experts are the
+    hand-kernel serving forward, whose eager warm-up and capture calls
+    launch and whose graph replays do not count; and the forwards its own
+    probabilities call for), and as a subprocess (``python
     -m``); both runs' PNGs within 1
     LSB of an in-process ``FullPipeline`` on the same decoded batches, the
     same route for each image, top1 showing routed, clean and dropped images.
@@ -1904,7 +1906,9 @@ def phase_pipeline(torch, smi):
     )
     from multi_degradation_image_enhancement_tpu_torch.data import io_native
     from multi_degradation_image_enhancement_tpu_torch.data.streaming import decode_chunk
-    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
+        LAUNCHES_PER_BLOCK, dense_block,
+    )
     from multi_degradation_image_enhancement_tpu_torch.pipeline import CLEAN, DROPPED
     from multi_degradation_image_enhancement_tpu_torch.run_pipeline import (
         build_full_pipeline, to_01, to_u8,
@@ -2002,7 +2006,7 @@ def phase_pipeline(torch, smi):
                f"{cli_s:.1f} s; in-process FullPipeline vs both "
                f"CLIs' PNGs max |d| {worst} LSB (limit 1), probs max |d| {probs_err:.2e}; the "
                f"in-process CLI ran {forwards} expert forwards (its probabilities call for "
-               f"{expected}) and {launches} dense_block launches (expected 0: the eval module); "
+               f"{expected}) and {launches} dense_block launches (the serving forward's); "
                f"native host-IO calls {io_calls}")
         rec = {"launches": launches, "expert_forwards": forwards, "cli_s": cli_s, "io": io_calls}
         if mode == "top1":
@@ -2015,7 +2019,8 @@ def phase_pipeline(torch, smi):
         say("pipeline", msg)
         require(worst <= 1, "CLI PNGs within 1 LSB of the in-process pipeline")
         require(forwards > 0 and forwards == expected, "the CLI ran the forwards its routes call for")
-        require(launches == 0, "no DenseBlock launch: the experts run the eval module")
+        require(launches > 0 and launches % LAUNCHES_PER_BLOCK == 0,
+                "whole DenseBlocks launched: the experts run the hand-kernel serving forward")
 
         # Timed on labelled traffic: each image routed to its own degradation's expert.
         first = art["labels"][:PIPE_BATCH]
@@ -2038,21 +2043,20 @@ def phase_pipeline(torch, smi):
 
 def pipeline_routes(torch, art, xs):
     """What the bank's route changes: one expert (noise's) over the 64
-    images, through the module route ``load_expert_bank`` builds (bf16
-    autocast) and through the fused serving forward it used before
-    (``build_serving_apply``, bf16), each against the f32 module (TF32 off):
-    max and mean |d| and the PSNR of the route's output against the f32
-    module's."""
+    images, through the route ``load_expert_bank`` builds on the card (the
+    hand-kernel serving forward, bf16, as a CUDA graph) and through the eval
+    module under a bf16 autocast (the JAX pipeline's route, the bank's
+    before), each against the f32 module (TF32 off): max and mean |d| and
+    the PSNR of the route's output against the f32 module's."""
     from multi_degradation_image_enhancement_tpu_torch.engine.checkpoint import load_weights
     from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN, eval_forward
-    from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_serving_apply
     from multi_degradation_image_enhancement_tpu_torch.pipeline import load_expert_bank
 
     path = str(art["weights"] / "CDAN_noise.pt")
     model = load_weights(path, CDAN()).to("cuda").eval()
     ref_fn = eval_forward(model, torch.float32)
-    routes = {"module": load_expert_bank({"noise": path}, torch.device("cuda"), torch.bfloat16)[1][0],
-              "fused": build_serving_apply(model, torch.bfloat16, torch.device("cuda"))}
+    routes = {"bank": load_expert_bank({"noise": path}, torch.device("cuda"), torch.bfloat16)[1][0],
+              "module": eval_forward(model, torch.bfloat16)}
     out = {}
     with torch.inference_mode():
         ref = torch.cat([ref_fn(x) for x in xs])

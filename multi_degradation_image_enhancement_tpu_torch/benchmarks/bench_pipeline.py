@@ -6,9 +6,9 @@
 
 The ResNet-18 two-head classifier and a nine-expert CDAN bank (one seeded
 random CDAN served nine times, as the JAX bench stacks one tree; the values
-do not set the compute; each expert the eval module under a bf16 autocast,
-as ``pipeline.load_expert_bank`` builds it and the JAX bench applies
-``CDAN(dtype)``) at the reference serving resolution, in bf16, timed
+do not set the compute; each expert the hand-kernel serving forward replayed
+from a CUDA graph per row count, as ``pipeline.load_expert_bank`` builds it
+on the card) at the reference serving resolution, in bf16, timed
 by CUDA events: the classifier alone, the expert bank alone on the
 classifier's probabilities, and the whole step, with the expert forwards a
 step runs (the routing mix is that of the untrained classifier at
@@ -109,9 +109,14 @@ def main() -> None:
         init_classifier,
         serving_classifier,
     )
-    from multi_degradation_image_enhancement_tpu_torch.models.cdan import eval_forward, init_cdan
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan import init_cdan
     from multi_degradation_image_enhancement_tpu_torch.ops.degradations import DEGRADATIONS
-    from multi_degradation_image_enhancement_tpu_torch.pipeline import FullPipeline, RoutedRestorer
+    from multi_degradation_image_enhancement_tpu_torch.pipeline import (
+        FullPipeline,
+        RoutedRestorer,
+        _serving_expert,
+        cuda_graphed,
+    )
 
     b, (h, w) = args.batch, args.hw
     names = list(DEGRADATIONS)
@@ -119,7 +124,8 @@ def main() -> None:
     gen = torch.Generator().manual_seed(0)
     clf = serving_classifier(init_classifier(gen, len(names), pretrained_backbone=False),
                              torch.bfloat16, dev)
-    forward = eval_forward(init_cdan(gen).to(dev), torch.bfloat16)
+    forward = _serving_expert(init_cdan(gen).to(dev), torch.bfloat16, dev)
+    forward.forward = cuda_graphed([forward.forward])[0]
     router = RoutedRestorer([forward] * len(names), names, mode=args.mode,
                             capacity_factor=args.capacity_factor)
     pipe = FullPipeline(clf, router, [0.5] * len(names))

@@ -19,10 +19,14 @@ dispatch and combine einsums so that one jitted program runs the bank; here
 each expert is its own forward, and the rows routed to it are gathered,
 restored and scattered back.  The result is the same: each one-hot sum has a
 single 1.0 term per row, exact in f32, and the eval forward treats every
-image on its own.  An expert with no row to restore is not run.  Each
-expert's forward is the one the JAX pipeline applies: the eval module with
-unfused DenseBlocks (``models.cdan.eval_forward``; bf16 autocast on the
-card), not the fused serving forward.
+image on its own.  An expert with no row to restore is not run.  On the card
+each expert's forward is the port's hand-kernel serving forward
+(``models.cdan_fast.build_serving_apply``: conv + BatchNorm folded, the
+DenseBlock, conv and upsample kernels), as the eval engine's ``"auto"``
+takes it on CUDA; on the CPU it is the eval module with unfused DenseBlocks
+(``models.cdan.eval_forward``), the route the JAX pipeline applies.  The two
+are the same CDAN; only the rounding points differ, and the tests hold the
+served forward to the fused forward's tolerance against the JAX bank.
 
 Expert-parallel serving (``mesh`` with an ``expert`` axis, the JAX
 package's ``pipeline.py:100-120``; one process per GPU): the bank is padded
@@ -52,7 +56,10 @@ counters, for the benchmark's per-layer metrics:
   (expert forwards run; ``expert_forwards`` names the bank's callables),
   ``routed_rows`` (rows through an expert's forward), and top1's
   ``dropped_rows`` and ``clean_rows`` (the decisions of the rank's own
-  :meth:`RoutedRestorer.route`; sequential mode counts neither).
+  :meth:`RoutedRestorer.route`; sequential mode counts neither);
+* each bank forward's ``cm_calls`` and ``per_block_calls``
+  (:class:`ExpertForward`): the calls that took the serving forward's CM or
+  per-block route, from the input's shape.
 
 On the card the host sets the pace unless it stays ahead: an eager expert
 forward enqueues some hundreds of kernels for 3–4 rows.  So top1 decides
@@ -78,6 +85,11 @@ from multi_degradation_image_enhancement_tpu_torch.classification.model import (
 )
 from multi_degradation_image_enhancement_tpu_torch.engine.checkpoint import load_weights
 from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN, eval_forward
+from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import (
+    build_serving_apply,
+    cm_forward_supported,
+    serving_tuning,
+)
 from multi_degradation_image_enhancement_tpu_torch.ops.degradations import DEGRADATIONS
 from multi_degradation_image_enhancement_tpu_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS
 from multi_degradation_image_enhancement_tpu_torch.utils.tracing import span
@@ -134,29 +146,75 @@ def cuda_graphed(forwards: Sequence[Optional[Callable]]) -> List[Optional[Callab
     return [None if f is None else graphed(f) for f in forwards]
 
 
+class ExpertForward:
+    """One expert's forward as :func:`load_expert_bank` builds it, with two
+    plain host counters of the calls, from the input's shape (no sync):
+    ``cm_calls``, the calls the serving forward ran as its CM forward
+    (``prefer_cm`` and :func:`cm_forward_supported`, its own rule), and
+    ``per_block_calls``, those it ran per block; both stay 0 on the module
+    route (``prefer_cm`` None).  The bank counts here, outside the CUDA
+    graph ``forward`` replays, so every replay counts; ``captures`` is that
+    graph's count (:func:`cuda_graphed`)."""
+
+    def __init__(self, forward: Forward, prefer_cm: Optional[bool] = None):
+        self.forward = forward
+        self.prefer_cm = prefer_cm
+        self.cm_calls = 0
+        self.per_block_calls = 0
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.prefer_cm is not None:
+            if self.prefer_cm and cm_forward_supported(x.shape[1], x.shape[2]):
+                self.cm_calls += 1
+            else:
+                self.per_block_calls += 1
+        return self.forward(x)
+
+    @property
+    def captures(self) -> int:
+        return getattr(self.forward, "captures", 0)
+
+
+def _serving_expert(model: CDAN, dtype, device) -> ExpertForward:
+    """The card's expert: the hand-kernel serving forward
+    (``build_serving_apply``) on the serving tuning file, as the eval
+    engine builds it on CUDA."""
+    tuning = serving_tuning()
+    return ExpertForward(build_serving_apply(model, dtype, device, tuning=tuning),
+                         tuning["prefer_cm"])
+
+
 def load_expert_bank(weight_paths: Dict[str, str], device, dtype,
                      only: Optional[Sequence[int]] = None
-                     ) -> Tuple[List[str], List[Optional[Forward]]]:
+                     ) -> Tuple[List[str], List[Optional[ExpertForward]]]:
     """Load each expert's ``CDAN_<task>.pt`` strictly onto ``device`` and
-    build its forward: the eval module in ``dtype`` (``eval_forward``: every
-    DenseBlock unfused, a bf16 autocast for bf16), as the JAX pipeline
-    applies ``CDAN(dtype)`` (``pipeline.py:125-126``).  ``weight_paths``
-    maps degradation name → weight file; returns (expert order, forwards).
-    ``only`` (an expert-parallel rank's :func:`expert_block`) loads those
-    experts and leaves None for the others.  On the card each forward
-    replays a CUDA graph of itself (:func:`cuda_graphed`)."""
+    build its forward in ``dtype``: on a CUDA device the hand-kernel serving
+    forward (:func:`_serving_expert`), elsewhere the eval module
+    (``eval_forward``: every DenseBlock unfused, a bf16 autocast for bf16),
+    as the JAX pipeline applies ``CDAN(dtype)`` (``pipeline.py:125-126``).
+    ``weight_paths`` maps degradation name → weight file; returns (expert
+    order, forwards).  ``only`` (an expert-parallel rank's
+    :func:`expert_block`) loads those experts and leaves None for the
+    others.  On the card each forward replays a CUDA graph of itself
+    (:func:`cuda_graphed`)."""
     names = list(weight_paths)
-    forwards: List[Optional[Forward]] = []
+    on_card = torch.device(device).type == "cuda"
+    experts: List[Optional[ExpertForward]] = []
     for e, name in enumerate(names):
         path = weight_paths[name]
         if not os.path.isfile(path):
             raise FileNotFoundError(f"Expert '{name}' weights not found: {path}")
         if only is not None and e not in only:
-            forwards.append(None)
+            experts.append(None)
             continue
         model = load_weights(path, CDAN()).to(device).eval()
-        forwards.append(eval_forward(model, dtype))
-    return names, cuda_graphed(forwards)
+        experts.append(_serving_expert(model, dtype, device) if on_card
+                       else ExpertForward(eval_forward(model, dtype)))
+    graphed = cuda_graphed([None if f is None else f.forward for f in experts])
+    for expert, forward in zip(experts, graphed):
+        if expert is not None:
+            expert.forward = forward
+    return names, experts
 
 
 def expert_block(n_experts: int, mesh) -> range:

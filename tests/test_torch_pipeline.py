@@ -11,8 +11,12 @@
   forward's tolerance (tests/test_cdan_fast.py:36: max 2e-2, mean 2e-3);
 * the expert bank in bf16 on the CPU (the eval module under autocast, the
   JAX pipeline's route) against the JAX bank of ``CDAN(dtype=bfloat16)``,
-  held to twice the JAX bank's own bf16-vs-f32 distance, beside the fused
-  forward's distance; ``load_expert_bank`` builds the module route;
+  held to twice the JAX bank's own bf16-vs-f32 distance, and the card's
+  route (the hand-kernel serving forward, built on the CPU through the
+  bank's own builder) held to the fused forward's tolerance against it;
+  ``load_expert_bank`` builds the module route on the CPU, and the card's
+  builder is ``build_serving_apply`` bit for bit, its calls counted by the
+  route each takes;
 * ``resolve_thresholds``, the packaged thresholds the CLI reads (the port's
   copy), and the u8 conversion of the CLI.
 """
@@ -45,6 +49,7 @@ from multi_degradation_image_enhancement_tpu_torch.pipeline import (
     CLEAN,
     DROPPED,
     RoutedRestorer,
+    _serving_expert,
     load_expert_bank,
 )
 from multi_degradation_image_enhancement_tpu_torch.utils.jax_port import (
@@ -274,11 +279,12 @@ def test_expert_bank_bf16_matches_jax_bank(tmp_path):
     held to twice it (the rule tests/test_torch_train.py holds the fused
     train step to).  Measured at
     4×32×48: floor max 5.46e-3, mean 9.76e-4; the module route max 5.50e-3,
-    mean 1.14e-3 from JAX's bf16 bank; the fused serving forward, which the
-    bank ran before, max 5.97e-3, mean 1.18e-3.  On the CPU the two bf16
-    routes sit about as far from JAX's bf16 rounding as bf16 sits from f32;
-    the route, not this distance, is what the repair fixes (the card's
-    phase 24 of chip_smoke.py measures what it changes there)."""
+    mean 1.14e-3 from JAX's bf16 bank.  The card's route
+    (``_serving_expert``, the builder ``load_expert_bank`` takes on CUDA,
+    here on the kernels' plain versions and the port's packaged tuning:
+    max 7.35e-3, mean 1.27e-3) is held to the fused forward's tolerance
+    against the JAX bf16 bank (tests/test_cdan_fast.py:36: max 2e-2, mean
+    2e-3), the module's distance beside it."""
     paths = write_tiny_pipeline(tmp_path)
     names = list(EXPERTS)
     x = np.random.RandomState(1).rand(4, *HW, 3).astype(np.float32)
@@ -302,17 +308,19 @@ def test_expert_bank_bf16_matches_jax_bank(tmp_path):
     got_names, forwards = load_expert_bank(_bank_paths(paths), "cpu", torch.bfloat16)
     assert got_names == names
     err = run(forwards)
-    fused = run([build_serving_apply(paths["experts"][n], torch.bfloat16, "cpu") for n in names])
+    fused = run([_serving_expert(paths["experts"][n], torch.bfloat16, "cpu") for n in names])
     report = (f"floor max {floor.max():.3e} mean {floor.mean():.3e}; module max {err.max():.3e} "
               f"mean {err.mean():.3e}; fused max {fused.max():.3e} mean {fused.mean():.3e}")
     assert floor.max() > 0, report  # bf16 did round
     assert err.max() <= 2 * floor.max() and err.mean() <= 2 * floor.mean(), report
+    assert fused.max() <= 2e-2 and fused.mean() <= 2e-3, report
 
 
 def test_load_expert_bank_builds_the_module_route(tmp_path, monkeypatch):
-    """Each expert is the eval module (unfused DenseBlocks) on the device:
-    f32 on the CPU equals ``model(x)`` bit for bit, bf16 runs it under a bf16
-    autocast (convolutions in bf16), and no DenseBlock kernel is reached."""
+    """On the CPU each expert is the eval module (unfused DenseBlocks): f32
+    equals ``model(x)`` bit for bit, bf16 runs it under a bf16 autocast
+    (convolutions in bf16), no DenseBlock kernel is reached, and neither
+    route counter moves."""
     from multi_degradation_image_enhancement_tpu_torch.models import cdan as cdan_mod
 
     paths = write_tiny_pipeline(tmp_path)
@@ -324,6 +332,7 @@ def test_load_expert_bank_builds_the_module_route(tmp_path, monkeypatch):
         assert not model.fused_dense
         with torch.no_grad():
             assert torch.equal(forward(x), model(x))
+        assert (forward.cm_calls, forward.per_block_calls) == (0, 0)
 
     seen = []
     conv_forward = cdan_mod.nn.Conv2d._conv_forward
@@ -339,6 +348,32 @@ def test_load_expert_bank_builds_the_module_route(tmp_path, monkeypatch):
     assert out.dtype == torch.float32 and out.shape == x.shape
     assert seen and set(seen) == {torch.bfloat16}
     assert dense_block.launches == n0
+    assert (forwards[0].cm_calls, forwards[0].per_block_calls) == (0, 0)
+
+
+@pytest.mark.parametrize("prefer_cm", [True, False])
+def test_serving_expert_is_the_serving_forward(tmp_path, monkeypatch, prefer_cm):
+    """The card's expert, built here on the CPU through the bank's own
+    builder: bit for bit ``build_serving_apply`` in f32 and in bf16 on the
+    same serving tuning, and each call counted by the route it takes (32×48
+    is a CM size, 40×40 is not: W is no multiple of 16); with the tuning's
+    ``prefer_cm`` off every call is per block."""
+    tuning = tmp_path / "tuning.json"
+    tuning.write_text(json.dumps({"prefer_cm": prefer_cm, "db_bf16_act": True,
+                                  "db_k_stack_max_ci": 56}))
+    monkeypatch.setenv("MDIE_SERVING_TUNING", str(tuning))
+    model = write_tiny_pipeline(tmp_path)["experts"]["noise"]
+    rng = np.random.RandomState(3)
+    x_cm = torch.from_numpy(rng.rand(2, *HW, 3).astype(np.float32))
+    x_pb = torch.from_numpy(rng.rand(1, 40, 40, 3).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        expert = _serving_expert(model, dtype, "cpu")
+        want = build_serving_apply(model, dtype, "cpu")
+        for x in (x_cm, x_pb):
+            assert torch.equal(expert(x), want(x)), dtype
+        cm = int(prefer_cm)
+        assert (expert.cm_calls, expert.per_block_calls) == (cm, 2 - cm), dtype
+        assert expert.captures == 0  # nothing graphed on the CPU
 
 
 def test_stream_restore_raises_a_decode_error(tmp_path, monkeypatch):
