@@ -16,7 +16,8 @@ line per phase, and exits non-zero at the first failure:
    image, growth 12, f32 I/O and both NHWC entries (#3's and #10's);
 5. the bf16 serving forward with kernels vs the canonical f32 ``CDAN``;
 6. requests through ``serving.build_pipeline`` (B=128·256², then
-   B=16·256×384), with launch counters showing both kernels ran;
+   B=16·256×384), with launch counters showing the noise, DenseBlock and
+   conv kernels ran (one #9 and seven #8 launches a step);
 7. times (CUDA events): ms/step, img/s, each kernel beside its plain version;
    each DenseBlock at B=128·256² also beside the module route (the unfused
    ``models.cdan.DenseBlock`` under a bf16 autocast) and the bytes floor of
@@ -40,17 +41,15 @@ line per phase, and exits non-zero at the first failure:
     seven CM conv shapes of B=128·256² and of B=16·256×384, at c_in 72 /
     c_out 3, at 32×34 and with an f32 x;
 13. the bf16 all-channel-major forward vs the f32 ``CDAN`` at 2×256² and
-    2×256×384, with the default conv table and with every conv on #8;
+    2×256×384, every conv after conv1 on #8;
 14. the DenseBlock kernel at the block shapes where the JAX package takes
     its row-tiled kernel (#3), ``fused_dense_block_cm`` once, and the
     per-block forward at 2×480×640 vs the f32 ``CDAN``;
-15. serving steps with ``prefer_cm`` at B=128·256², first with the default
-    conv table, then with every conv on #8, with launch counters;
+15. serving steps at B=128·256² with launch counters (the served CM
+    forward: one #9 and seven #8 launches a step);
 16. ``run.main`` ``-p test`` on noise_synthetic.json's test block cut to 64
-    images, scoring the checkpoint of phase 10: per-block (the pinned
-    tuning), with ``MDIE_SERVING_TUNING`` naming a tuning copy with
-    ``prefer_cm: true``,
-    and with the test images resized to 480×640 (the #3 route);
+    images, scoring the checkpoint of phase 10: at 256×384 (the pinned
+    tuning) and with the test images resized to 480×640 (the #3 route);
 17. times: #8 and #9 vs plain, #9 also vs its cuDNN module route (bf16
     ``F.conv2d`` + bias, ReLU, ``F.max_pool2d``: a yardstick the port never
     calls), the CM vs the per-block forward, the eval step per B=16 batch,
@@ -177,11 +176,12 @@ line per phase, and exits non-zero at the first failure:
     limit), growth launches, an epoch's ms a step beside the plain loop's;
 38. the port's tuner (``benchmarks/tune_serving``, ``--dry-run --iters 5``)
     at B=128·256² in-process, the serving counts reset around it: every
-    variant sane, each one's ms in turns, the winner and the CM conv A/B; the
-    port's tuning file names this card and a variant found sane; the served
-    default's forward vs the f32 ``CDAN`` and its ``-p test`` beside phase 16's;
+    variant (f32 and bf16 activations) sane, each one's ms in turns, the
+    winner; the port's tuning file names this card and a variant found sane;
+    the served default's forward vs the f32 ``CDAN`` and its ``-p test``
+    beside phase 16's;
 39. the bench (``python -m …_torch.bench``, ``BENCH_BUDGET_S=240``) as a
-    subprocess: one JSON line naming this card and the tuning file's forward,
+    subprocess: one JSON line naming this card and the tuning file's keys,
     its img/s beside phases 7 and 17;
 40. ``benchmarks/train_throughput`` rows b16 and b16_fused (``--iters 2
     --chunk 4``) in-process, the growth counts reset around it: finite
@@ -194,11 +194,9 @@ line per phase, and exits non-zero at the first failure:
     kernel in a profiled CM forward; each call's ms (CUDA events) beside
     its bytes bound, the plain version and aten's ``F.interpolate`` + add.
 
-Phases 1-37 run the forward they were written for, whatever the port's
-tuning file chose on the card (``pin_forward``): per-block with f32
-activations through a tuning file under ``build/`` (``PINNED_TUNING``), and
-every ``_CM_CONV_IMPL`` entry on ``F.conv2d`` (the "default" table of phases
-13, 15 and 17); phases 38-40 run the port's own tuning and table.
+Phases 1-37 run the served forward with f32 activations, whatever the port's
+tuning file chose on the card (``pin_forward``: a tuning file under
+``build/``, ``PINNED_TUNING``); phases 38-40 run the port's own tuning.
 
 Phases 5, 12-14, 17 and 24 use CDANs whose BatchNorm statistics keep the whole path
 live (``live_cdan``): with ``init_cdan``'s statistics the decoder's ReLUs
@@ -510,9 +508,8 @@ def phase_forward(torch, model):
 def phase_requests(torch):
     from multi_degradation_image_enhancement_tpu_torch import serving
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
-        LAUNCHES_PER_BLOCK, dense_block,
+        LAUNCHES_PER_BLOCK,
     )
-    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.noise import noise_degrade_01
 
     step, bench_clean = serving.build_pipeline(BENCH_BATCH, BENCH_SIZE, torch.bfloat16, "cuda")
     eval_clean = serving.clean_batch(EVAL_BATCH, *EVAL_HW, device="cuda")
@@ -521,12 +518,11 @@ def phase_requests(torch):
     step(eval_clean, gen)
     torch.cuda.synchronize()
 
-    noise_degrade_01.launches = 0
-    dense_block.launches = 0
+    _serving_counts(reset=True)
     outs = [step(bench_clean, gen) for _ in range(BENCH_STEPS)]
     outs += [step(eval_clean, gen) for _ in range(EVAL_STEPS)]
     torch.cuda.synchronize()
-    launches = {"noise_degrade": noise_degrade_01.launches, "dense_block": dense_block.launches}
+    launches = _serving_counts()
 
     n_steps = BENCH_STEPS + EVAL_STEPS
     for i, out in enumerate(outs):
@@ -534,12 +530,14 @@ def phase_requests(torch):
         require(tuple(out.shape) == (bsz, *hw, 3) and out.dtype == torch.float32, "output shape")
         require(bool(torch.isfinite(out).all()), "outputs finite")
         require(out.min().item() >= 0.0 and out.max().item() <= 1.0, "outputs in [0, 1]")
+    want = {"noise_degrade": n_steps, "dense_block": 4 * LAUNCHES_PER_BLOCK * n_steps,
+            "conv3x3_pool": n_steps, "conv3x3": 7 * n_steps, "bilinear_x2_add": 3 * n_steps}
     say("requests", f"{BENCH_STEPS} steps B={BENCH_BATCH}x{BENCH_SIZE}^2 + {EVAL_STEPS} steps "
         f"B={EVAL_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} bf16: finite, in [0,1]; launches {launches} "
-        f"(expected noise {n_steps}, dense_block {4 * LAUNCHES_PER_BLOCK * n_steps})")
-    require(launches["noise_degrade"] == n_steps, "one noise launch per step")
-    require(launches["dense_block"] == 4 * LAUNCHES_PER_BLOCK * n_steps,
-            "4 DenseBlocks x (entry + 4 growth + transition) launches per step")
+        f"(expected {want})")
+    require({k: launches[k] for k in want} == want,
+            "per step one noise launch, 4 DenseBlocks x (entry + 4 growth + transition), "
+            "one #9, seven #8 and three upsample launches")
     return launches, step, bench_clean, eval_clean
 
 
@@ -932,37 +930,29 @@ def phase_conv_kernels(torch, model):
 
 
 def phase_cm_forward(torch, model):
-    """The bf16 CM forward vs the f32 ``CDAN`` at 2x256² and 2x256x384, with
-    the default conv table and with every conv on #8 (7 launches a forward):
-    max <= 2e-2, mean <= 2e-3 (tests/test_cdan_fast.py:108-109)."""
+    """The bf16 CM forward vs the f32 ``CDAN`` at 2x256² and 2x256x384, every
+    conv after conv1 on #8 (7 launches a forward): max <= 2e-2, mean <= 2e-3
+    (tests/test_cdan_fast.py:108-109)."""
     from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import conv3x3, conv3x3_pool
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(14)
     model = model.to(dev)
-    default = dict(cdan_fast._CM_CONV_IMPL)
     for hw in ((BENCH_SIZE, BENCH_SIZE), EVAL_HW):
         x = torch.rand((2, *hw, 3), device=dev, generator=g)
         with torch.inference_mode():
             ref = model(x)
-        for table in ("default", "kernel"):
-            if table == "kernel":
-                cdan_fast._CM_CONV_IMPL.update(dict.fromkeys(default, "kernel"))
-            try:
-                n0 = (conv3x3.launches, conv3x3_pool.launches)
-                got = cdan_fast.build_fast_apply_cm(model, torch.bfloat16, dev)(x)
-                torch.cuda.synchronize()
-                n = (conv3x3.launches - n0[0], conv3x3_pool.launches - n0[1])
-            finally:
-                cdan_fast._CM_CONV_IMPL.update(default)
-            err = (got - ref).abs()
-            say("cm_forward", f"2x{hw[0]}x{hw[1]} conv table {table}: max {err.max().item():.3e} "
-                f"(limit 2e-2) mean {err.mean().item():.3e} (limit 2e-3); launches conv3x3 {n[0]} "
-                f"conv3x3_pool {n[1]}")
-            require(got.shape == ref.shape and bool(torch.isfinite(got).all()), "CM forward shape")
-            require(err.max().item() <= 2e-2 and err.mean().item() <= 2e-3, f"CM forward {table}")
-            require(n == ((7 if table == "kernel" else 0), 1), "conv launches of one CM forward")
+        n0 = (conv3x3.launches, conv3x3_pool.launches)
+        got = cdan_fast.build_fast_apply_cm(model, torch.bfloat16, dev)(x)
+        torch.cuda.synchronize()
+        n = (conv3x3.launches - n0[0], conv3x3_pool.launches - n0[1])
+        err = (got - ref).abs()
+        say("cm_forward", f"2x{hw[0]}x{hw[1]}: max {err.max().item():.3e} (limit 2e-2) mean "
+            f"{err.mean().item():.3e} (limit 2e-3); launches conv3x3 {n[0]} conv3x3_pool {n[1]}")
+        require(got.shape == ref.shape and bool(torch.isfinite(got).all()), "CM forward shape")
+        require(err.max().item() <= 2e-2 and err.mean().item() <= 2e-3, "CM forward vs module")
+        require(n == (7, 1), "conv launches of one CM forward")
 
 
 def phase_tiled_shapes(torch, model):
@@ -970,7 +960,7 @@ def phase_tiled_shapes(torch, model):
     row-tiled ``_run_cm`` (#3), vs its plain version in f32 (the DenseBlock
     limits: max <= 5e-2, mean <= 5e-3); ``fused_dense_block_cm`` once; the
     whole per-block forward at 2x480x640 vs the f32 ``CDAN`` (2e-2, 2e-3)."""
-    from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_serving_apply
+    from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_fast_apply
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
         dense_block, dense_block_plain, fused_dense_block_cm, pack_dense_block,
     )
@@ -1001,7 +991,7 @@ def phase_tiled_shapes(torch, model):
             "fused_dense_block_cm vs plain")
     with torch.inference_mode():
         ref = model(x)
-        got = build_serving_apply(model, torch.bfloat16, dev, prefer_cm=False)(x)
+        got = build_fast_apply(model, torch.bfloat16, dev)(x)
     torch.cuda.synchronize()
     err = (got - ref).abs()
     say("tiled_shapes", f"per-block forward bf16 vs f32 CDAN at 2x{PHOTO_HW[0]}x{PHOTO_HW[1]}: "
@@ -1011,49 +1001,32 @@ def phase_tiled_shapes(torch, model):
 
 
 def phase_requests_cm(torch):
-    """Serving steps with ``prefer_cm`` at B=128·256²: with the default conv
-    table, one conv+pool and 20 DenseBlock launches a step and no #8 launch;
-    with every conv on #8 (the A/B setting of ``benchmarks/ablate_cm.py``), 7
-    #8 launches a step more.  Returns the launches and both steps."""
+    """Serving steps at B=128·256² (the served CM forward): one conv+pool,
+    7 #8 and 24 DenseBlock launches a step.  Returns the launches and the
+    step."""
     from multi_degradation_image_enhancement_tpu_torch import serving
-    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
-    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import conv3x3, conv3x3_pool
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
-        LAUNCHES_PER_BLOCK, dense_block,
+        LAUNCHES_PER_BLOCK,
     )
-    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.noise import noise_degrade_01
 
-    default = dict(cdan_fast._CM_CONV_IMPL)
-    step, clean = serving.build_pipeline(BENCH_BATCH, BENCH_SIZE, torch.bfloat16, "cuda",
-                                         prefer_cm=True)
-    cdan_fast._CM_CONV_IMPL.update(dict.fromkeys(default, "kernel"))
-    try:
-        step_k, _ = serving.build_pipeline(BENCH_BATCH, BENCH_SIZE, torch.bfloat16, "cuda",
-                                           prefer_cm=True)
-    finally:
-        cdan_fast._CM_CONV_IMPL.update(default)
+    step, clean = serving.build_pipeline(BENCH_BATCH, BENCH_SIZE, torch.bfloat16, "cuda")
     gen = torch.Generator().manual_seed(3)
-    launches = {}
-    for table, fn in (("default", step), ("kernel", step_k)):
-        fn(clean, gen)  # warm-up
-        torch.cuda.synchronize()
-        noise_degrade_01.launches = dense_block.launches = 0
-        conv3x3.launches = conv3x3_pool.launches = 0
-        outs = [fn(clean, gen) for _ in range(BENCH_STEPS)]
-        torch.cuda.synchronize()
-        n = {"noise_degrade": noise_degrade_01.launches, "dense_block": dense_block.launches,
-             "conv3x3_pool": conv3x3_pool.launches, "conv3x3": conv3x3.launches}
-        for out in outs:
-            require(tuple(out.shape) == (BENCH_BATCH, BENCH_SIZE, BENCH_SIZE, 3), "output shape")
-            require(bool(torch.isfinite(out).all()) and out.min().item() >= 0.0
-                    and out.max().item() <= 1.0, "outputs finite, in [0, 1]")
-        want = {"noise_degrade": BENCH_STEPS, "dense_block": 4 * LAUNCHES_PER_BLOCK * BENCH_STEPS,
-                "conv3x3_pool": BENCH_STEPS, "conv3x3": (7 if table == "kernel" else 0) * BENCH_STEPS}
-        say("requests_cm", f"{BENCH_STEPS} steps B={BENCH_BATCH}x{BENCH_SIZE}^2 prefer_cm, conv "
-            f"table {table}: finite, in [0,1]; launches {n} (expected {want})")
-        require(n == want, f"prefer_cm launches, conv table {table}")
-        launches[table] = n
-    return launches, step, step_k, clean
+    step(clean, gen)  # warm-up
+    torch.cuda.synchronize()
+    _serving_counts(reset=True)
+    outs = [step(clean, gen) for _ in range(BENCH_STEPS)]
+    torch.cuda.synchronize()
+    n = _serving_counts()
+    for out in outs:
+        require(tuple(out.shape) == (BENCH_BATCH, BENCH_SIZE, BENCH_SIZE, 3), "output shape")
+        require(bool(torch.isfinite(out).all()) and out.min().item() >= 0.0
+                and out.max().item() <= 1.0, "outputs finite, in [0, 1]")
+    want = {"noise_degrade": BENCH_STEPS, "dense_block": 4 * LAUNCHES_PER_BLOCK * BENCH_STEPS,
+            "conv3x3_pool": BENCH_STEPS, "conv3x3": 7 * BENCH_STEPS}
+    say("requests_cm", f"{BENCH_STEPS} steps B={BENCH_BATCH}x{BENCH_SIZE}^2: finite, in [0,1]; "
+        f"launches {n} (expected {want})")
+    require({k: n[k] for k in want} == want, "CM step launches")
+    return n, step, clean
 
 
 def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_IMAGES,
@@ -1146,24 +1119,19 @@ def _cli_test(torch, name: str, ckpt_dir: Path, env=None, hw=None, images=TEST_I
 
 
 def phase_cli_test(torch, train_engine):
-    """``-p test`` through ``run.main``: per-block (the pinned tuning),
-    with ``prefer_cm`` from a tuning copy (one #9 launch per batch), and at
-    480x640 (the JAX package's #3 route)."""
+    """``-p test`` through ``run.main`` on the pinned tuning: at 256x384 (one
+    #9 and seven #8 launches a batch) and at 480x640 (the JAX package's #3
+    route)."""
     ckpt_dir = Path(train_engine.model_path)
     shipped = _cli_test(torch, "shipped", ckpt_dir)
-    require(shipped["launches"]["conv3x3_pool"] == 0, "the pinned tuning runs no conv+pool")
-    tuning = dict(PINNED_TUNING, prefer_cm=True)
-    tuning_path = Path("build") / "chip_smoke_test" / "serving_tuning_prefer_cm.json"
-    tuning_path.write_text(json.dumps(tuning))
-    cm = _cli_test(torch, "prefer_cm", ckpt_dir, env={"MDIE_SERVING_TUNING": str(tuning_path)})
-    require(cm["launches"]["conv3x3_pool"] == cm["batches"], "one conv+pool launch per batch")
+    require(shipped["launches"]["conv3x3_pool"] == shipped["batches"]
+            and shipped["launches"]["conv3x3"] == 7 * shipped["batches"],
+            "one conv+pool and seven #8 launches per batch")
     photo = _cli_test(torch, "photo_480x640", ckpt_dir, hw=PHOTO_HW, images=PHOTO_IMAGES)
-    for a, b in (("metric_psnr", 0.5), ("metric_ssim", 0.02)):
-        require(abs(shipped["scores"][a] - cm["scores"][a]) <= b, f"{a}: CM and per-block agree")
-    return shipped, cm, photo
+    return shipped, photo
 
 
-def eval_times(torch, smi, model, shipped, step, step_k, clean):
+def eval_times(torch, smi, model, shipped, step, clean):
     """CUDA-event times: #8 and #9 vs plain, #9 vs its cuDNN module route,
     the CM vs the per-block forward, the eval step per B=16 batch, the
     DenseBlock at the photo shape; with the wall time of each ``-p test``."""
@@ -1208,10 +1176,9 @@ def eval_times(torch, smi, model, shipped, step, step_k, clean):
         say("times", f"[{smi}] forward B={bsz}x{hw[0]}x{hw[1]} bf16: CM {a:.3f} ms/step, "
             f"per-block {b:.3f} ms/step")
     gen = torch.Generator().manual_seed(4)
-    a, b = cuda_ms(lambda: step(clean, gen), 10), cuda_ms(lambda: step_k(clean, gen), 5)
-    times["cm_step_ms"], times["cm_kernel_step_ms"] = a, b
-    say("times", f"[{smi}] degrade->restore prefer_cm B={BENCH_BATCH}x{BENCH_SIZE}^2: default conv "
-        f"table {a:.3f} ms/step ({BENCH_BATCH / a * 1e3:.1f} img/s); every conv on #8 {b:.3f} ms/step")
+    times["cm_step_ms"] = a = cuda_ms(lambda: step(clean, gen), 10)
+    say("times", f"[{smi}] degrade->restore B={BENCH_BATCH}x{BENCH_SIZE}^2 (phase 15's step): "
+        f"{a:.3f} ms/step ({BENCH_BATCH / a * 1e3:.1f} img/s)")
 
     engine = shipped["engine"]
     eval_step = engine._build_eval_step(engine._load_for_eval())
@@ -3150,10 +3117,10 @@ BF16_ACT_MAX = 1e-3  # twice its reading, one bf16 ulp at 0.125-0.25 (NVIDIA H10
 BF16_ACT_MEAN_SHARE = 0.01  # its reading: below 1e-6 of the f32-activation kernel's mean
 LPIPS_BATCH = 4  # phase 36: B=4·256x384, card vs CPU
 SCAN_K = 4  # phase 37: train.scan_chunk (one epoch of 64 images at B=16 is one chunk)
-# Phases 1-37's forward: per-block, f32 activations (the tuning the port shipped
-# before it tuned itself on the card), with every CM conv on F.conv2d unless a
-# phase says otherwise; pinned by pin_forward() whatever the port's file chose.
-PINNED_TUNING = {"prefer_cm": False, "db_bf16_act": False, "db_k_stack_max_ci": 56}
+# Phases 1-37's tuning: f32 activations (the tuning the port shipped before it
+# tuned itself on the card) unless a phase says otherwise; pinned by
+# pin_forward() whatever the port's file chose.
+PINNED_TUNING = {"db_bf16_act": False, "db_k_stack_max_ci": 56}
 TUNE_ITERS = 5  # phase 38: timed steps of each variant in each turn
 BENCH_BUDGET = 240  # phase 39: BENCH_BUDGET_S of the bench subprocess
 TRAIN_TP = {"rows": ("b16", "b16_fused"), "iters": 2, "chunk": 4}  # phase 40
@@ -3508,34 +3475,24 @@ def phase_scan_chunk(torch, smi):
     return {"d_scan": d_scan, "limit": limit, "ms": {k: sum(v) / 2 for k, v in ms.items()}}
 
 
-def pin_forward():
-    """Pin phases 1-37 to the forward they were written for
+def pin_forward() -> None:
+    """Pin phases 1-37 to the tuning they were written for
     (:data:`PINNED_TUNING` through a tuning file under ``build/`` named by
-    ``$MDIE_SERVING_TUNING``, inherited by every process they start; every
-    ``_CM_CONV_IMPL`` entry "xla", which phases 13, 15 and 17 call the default
-    table), whatever the port's tuning file chose on the card.  Returns the
-    table to restore with :func:`unpin_forward`."""
+    ``$MDIE_SERVING_TUNING``, inherited by every process they start),
+    whatever the port's tuning file chose on the card."""
     import os
-
-    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
 
     path = Path("build") / "chip_smoke_tuning" / "pinned.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(PINNED_TUNING))
     os.environ["MDIE_SERVING_TUNING"] = str(path)
-    table = dict(cdan_fast._CM_CONV_IMPL)
-    cdan_fast._CM_CONV_IMPL.update(dict.fromkeys(table, "xla"))
-    return table
 
 
-def unpin_forward(table) -> None:
-    """The port's own tuning file and ``_CM_CONV_IMPL`` default again."""
+def unpin_forward() -> None:
+    """The port's own tuning file again."""
     import os
 
-    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
-
     os.environ.pop("MDIE_SERVING_TUNING", None)
-    cdan_fast._CM_CONV_IMPL.update(table)
 
 
 def _serving_counts(reset: bool = False) -> dict:
@@ -3559,14 +3516,13 @@ def phase_tune_serving(torch, smi, live, ckpt_dir: Path, shipped):
     """Phase 38: the port's tuner (``benchmarks/tune_serving.sweep``, as
     ``--dry-run --iters 5``) at B=128·256² bf16 in this process, the counts
     reset just before and read just after: every variant sane; each one's ms
-    in turns, the winner and the CM conv A/B printed.  The port's shipped
-    tuning file must name this card (name and power limit) and a variant this
-    run found sane; the winner is printed beside it, not gated (the runs are
-    noisy).  Then the served default (no ``$MDIE_SERVING_TUNING``, the
-    module's ``_CM_CONV_IMPL``): its forward vs the f32 ``CDAN`` at 2x256²
-    and 2x256x384 (phase 5's limits, 2e-2 / 2e-3), and ``-p test`` on phase
-    10's checkpoint through it, its PSNR and SSIM beside phase 16's shipped
-    run's (phase 16's 0.5 dB / 0.02)."""
+    in turns and the winner printed.  The port's shipped tuning file must
+    name this card (name and power limit) and a variant this run found sane;
+    the winner is printed beside it, not gated (the runs are noisy).  Then
+    the served default (no ``$MDIE_SERVING_TUNING``): its forward vs the f32
+    ``CDAN`` at 2x256² and 2x256x384 (phase 5's limits, 2e-2 / 2e-3), and
+    ``-p test`` on phase 10's checkpoint through it, its PSNR and SSIM within
+    0.5 dB / 0.02 of phase 16's pinned f32-activation run."""
     from multi_degradation_image_enhancement_tpu_torch.benchmarks import tune_serving
     from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
@@ -3579,7 +3535,6 @@ def phase_tune_serving(torch, smi, live, ckpt_dir: Path, shipped):
     results = tune_serving.sweep(BENCH_BATCH, BENCH_SIZE, TUNE_ITERS, dev, 0.25)
     torch.cuda.synchronize()
     launches = _serving_counts()
-    ab = tune_serving.cm_conv_ab(results)
     sane = [r for r in results if r["sane"] and "ms_per_step" in r]
     for r in results:
         say("tune_serving", f"[{smi}] {tune_serving.label(r)}: "
@@ -3588,27 +3543,21 @@ def phase_tune_serving(torch, smi, live, ckpt_dir: Path, shipped):
                f"{r['maxdiff_vs_baseline_variant']:.3e}, sane {r['sane']}"
                if "ms_per_step" in r else f"FAILED {r.get('error')}"))
     best = min(sane, key=lambda r: r["ms_per_step"]) if sane else None
-    for key, r in ab.items():
-        say("tune_serving", f"[{smi}] CM conv A/B ({key}): F.conv2d {r['xla_ms']:.3f} ms, #8 "
-            f"{r['kernel_ms']:.3f} ms -> {r['faster']}")
-    keys = ("prefer_cm", "db_bf16_act", "db_k_stack_max_ci")
+    keys = tune_serving.KEYS
     cfg = json.loads(cdan_fast._TUNING_PATH.read_text())
     prov = cfg["provenance"]["forward_variants"]
     shipped_variant = {k: cfg[k] for k in keys}
-    table = cdan_fast.cm_conv_choice() if cfg["prefer_cm"] else None
-    found = [r for r in sane if {k: r[k] for k in keys} == shipped_variant
-             and r["cm_conv"] == table]
+    found = [r for r in sane if {k: r[k] for k in keys} == shipped_variant]
     n = len(results)
     per_variant = 1 + 2 * (2 + TUNE_ITERS)  # the sanity step, then 2 turns of warm-up + timed
     want = {"noise_degrade": n * per_variant, "dense_block": 4 * LAUNCHES_PER_BLOCK * n * per_variant,
-            "conv3x3_pool": per_variant * sum(r["prefer_cm"] for r in results),
-            "conv3x3": 7 * per_variant * sum(r["cm_conv"] == "kernel" for r in results),
+            "conv3x3_pool": n * per_variant, "conv3x3": 7 * n * per_variant,
             "dense_block_bf16_act": 17 * per_variant * sum(r["db_bf16_act"] for r in results),
             "bilinear_x2_add": 3 * n * per_variant}
     say("tune_serving", f"launches {launches} (expected {want}); winner "
         f"{tune_serving.label(best) if best else None} "
-        f"({best['ms_per_step']:.3f} ms/step); shipped file: {shipped_variant}, conv table "
-        f"{table}, tuned on {prov.get('device') if isinstance(prov, dict) else prov} "
+        f"({best['ms_per_step']:.3f} ms/step); shipped file: {shipped_variant}, tuned on "
+        f"{prov.get('device') if isinstance(prov, dict) else prov} "
         f"{prov.get('power_limit') if isinstance(prov, dict) else ''} on "
         f"{prov.get('date_utc') if isinstance(prov, dict) else '-'}")
     require(len(sane) == n, "every serving variant sane")
@@ -3630,20 +3579,19 @@ def phase_tune_serving(torch, smi, live, ckpt_dir: Path, shipped):
                 "served default forward vs module")
     test = _cli_test(torch, "served_default", ckpt_dir)
     say("tune_serving", f"-p test through the served default: {test['scores']} against the "
-        f"pinned per-block run's {shipped['scores']}")
+        f"pinned f32-activation run's {shipped['scores']}")
     for a, b in (("metric_psnr", 0.5), ("metric_ssim", 0.02)):
         require(abs(shipped["scores"][a] - test["scores"][a]) <= b,
-                f"{a}: the served default and the per-block forward agree")
-    return {"results": results, "launches": launches, "best": best, "shipped": shipped_variant,
-            "table": table}
+                f"{a}: the served default and the pinned run agree")
+    return {"results": results, "launches": launches, "best": best, "shipped": shipped_variant}
 
 
 def phase_bench(torch, smi, times, cm_ms):
     """Phase 39: ``python -m …_torch.bench`` as a subprocess with
     ``BENCH_BUDGET_S=240`` and the port's own tuning: exactly one JSON line,
-    ``value`` > 0, ``device`` and ``power_limit`` this card's, and the forward
-    it reports the tuning file's (``_CM_CONV_IMPL`` the module's default); its
-    rate beside phase 7's per-block and phase 17's CM rates."""
+    ``value`` > 0, ``device`` and ``power_limit`` this card's, and the tuning
+    it reports the tuning file's; its rate beside phase 7's and phase 17's
+    (f32 activations)."""
     import os
 
     from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
@@ -3659,21 +3607,17 @@ def phase_bench(torch, smi, times, cm_ms):
         f"tail {proc.stderr.strip().splitlines()[-3:]}")
     require(proc.returncode == 0 and len(lines) == 1, "the bench prints exactly one line")
     line = json.loads(lines[0])
-    tuning = cdan_fast.serving_tuning()
-    forward = {"prefer_cm": tuning["prefer_cm"], "cm_conv": cdan_fast.cm_conv_choice(),
-               "db_bf16_act": tuning["db_bf16_act"],
-               "db_k_stack_max_ci": tuning["db_k_stack_max_ci"]}
-    per_block = BENCH_BATCH / times["serving_step_ms"] * 1e3
+    forward = cdan_fast.serving_tuning()
     say("bench", f"[{smi}] {line['value']} img/s at B={line['batch']} ({line['timing_method']}, "
-        f"{line.get('ms_per_step_cuda_events')} ms/step by CUDA events), forward "
-        f"{ {k: line.get(k) for k in forward} }; beside phase 7's per-block {per_block:.1f} img/s "
-        f"({times['serving_step_ms']:.3f} ms) and phase 17's CM {BENCH_BATCH / cm_ms['cm_step_ms'] * 1e3:.1f} "
-        f"(F.conv2d) / {BENCH_BATCH / cm_ms['cm_kernel_step_ms'] * 1e3:.1f} (#8) img/s")
+        f"{line.get('ms_per_step_cuda_events')} ms/step by CUDA events), tuning "
+        f"{ {k: line.get(k) for k in forward} }; beside phase 7's "
+        f"{BENCH_BATCH / times['serving_step_ms'] * 1e3:.1f} img/s ({times['serving_step_ms']:.3f} "
+        f"ms) and phase 17's {BENCH_BATCH / cm_ms['cm_step_ms'] * 1e3:.1f} img/s, f32 activations")
     require(line["metric"] == "256px_images_per_sec_per_chip_degrade_restore"
             and line["value"] > 0, "the bench measured")
     require(f"{line['device']}, {line['power_limit']}" == smi, "the bench names this card")
     require({k: line.get(k) for k in forward} == forward,
-            "the bench reports the port's tuning file's forward")
+            "the bench reports the port's tuning file")
     return line
 
 
@@ -3739,7 +3683,7 @@ def main() -> int:
 
     smi = phase_device(torch)
     phase_build()
-    cm_table = pin_forward()
+    pin_forward()
     noise_err = phase_noise(torch)
     model = init_cdan(torch.Generator().manual_seed(0))
     db_err, packs = phase_dense_blocks(torch, model)
@@ -3756,9 +3700,9 @@ def main() -> int:
     conv_err = phase_conv_kernels(torch, live)
     phase_cm_forward(torch, live)
     tiled_err = phase_tiled_shapes(torch, live)
-    cm_launches, step_cm, step_k, clean = phase_requests_cm(torch)
-    shipped, cm_run, photo = phase_cli_test(torch, engine)
-    cm_ms = eval_times(torch, smi, live, shipped, step_cm, step_k, clean)
+    cm_launches, step_cm, clean = phase_requests_cm(torch)
+    shipped, photo = phase_cli_test(torch, engine)
+    cm_ms = eval_times(torch, smi, live, shipped, step_cm, clean)
     fdb_err, fdb_launches, fdb_ms = phase_fused_dense_block(torch, smi, model)
     phase_degradations(torch, smi)
     records = phase_cli_configs(torch)
@@ -3787,7 +3731,7 @@ def main() -> int:
     bf16_act = phase_bf16_act(torch, smi, model, live, Path(engine.model_path))
     phase_lpips_backbones(torch, smi, shipped)
     phase_scan_chunk(torch, smi)
-    unpin_forward(cm_table)
+    unpin_forward()
     tuned = phase_tune_serving(torch, smi, live, Path(engine.model_path), shipped)
     phase_bench(torch, smi, times, cm_ms)
     train_tp = phase_train_throughput(torch, smi, noise_train_ms)
@@ -3832,12 +3776,12 @@ def main() -> int:
          "ms": gt_ms["bwd"], "plain_ms": gt_ms["plain_bwd"], "library_ms": None,
          "module_route_ms": gt_ms["module_bwd"]},
         {"name": "conv3x3_pool", "route": "cuda", "source": f"{src}/conv_cm.cu",
-         "replaces": f"{ref}/conv_pool_cm.py:100", "launches": cm_run["launches"]["conv3x3_pool"],
+         "replaces": f"{ref}/conv_pool_cm.py:100", "launches": shipped["launches"]["conv3x3_pool"],
          "max_abs_err": conv_err["conv3x3_pool"], "ms": cm_ms["conv3x3_pool"][0],
          "plain_ms": cm_ms["conv3x3_pool"][1], "library_ms": None,
          "module_route_ms": cm_ms["conv3x3_pool_module_ms"]},
         {"name": "conv3x3", "route": "cuda", "source": f"{src}/conv_cm.cu",
-         "replaces": f"{ref}/conv_cm.py:49", "launches": cm_launches["kernel"]["conv3x3"],
+         "replaces": f"{ref}/conv_cm.py:49", "launches": cm_launches["conv3x3"],
          "max_abs_err": conv_err["conv3x3"], "ms": cm_ms["conv3x3"][0],
          "plain_ms": cm_ms["conv3x3"][1], "library_ms": conv_lib_ms},
         {"name": "dense_block_tiled", "route": "cuda", "source": f"{src}/dense_block.cu",

@@ -19,7 +19,7 @@ expires (a SIGALRM 30 s before it abandons the work in flight)::
     {"metric": "256px_images_per_sec_per_chip_degrade_restore", "value": N,
      "unit": "img/s/chip", "device": ..., "power_limit": ..., "batch": ...,
      "timing_method": "host_loop", "ms_per_step_cuda_events": ...,
-     "prefer_cm": ..., "cm_conv": "xla" | "kernel" | "mixed", "db_bf16_act": ...}
+     "db_bf16_act": ..., "db_k_stack_max_ci": ...}
 
 Left out of the JAX bench, and why: ``vs_baseline`` (its 5,000 img/s is the
 JAX repo's TPU target, not a reading on this card); the health probe and
@@ -125,13 +125,10 @@ class PipelineTimer:
 
 
 def forward_taken() -> dict:
-    """The serving forward the pipeline builds under the current tuning."""
+    """The serving tuning the pipeline builds its forward under."""
     from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
 
-    tuning = cdan_fast.serving_tuning()
-    return {"prefer_cm": tuning["prefer_cm"], "cm_conv": cdan_fast.cm_conv_choice(),
-            "db_bf16_act": tuning["db_bf16_act"],
-            "db_k_stack_max_ci": tuning["db_k_stack_max_ci"]}
+    return cdan_fast.serving_tuning()
 
 
 def run(result: Result, device: str, time_left) -> int:

@@ -1,7 +1,7 @@
 """Two checkouts of the port on one card, in turns: the inference DenseBlock
 kernels and the serving step, (``--train``) the training growth layers and
 the train step, or (``--kernels``) conv1 + pool (#9), the int8 probe GEMM
-(#11 int8) and the ``prefer_cm`` serving step.
+(#11 int8) and the serving step.
 
     python -m multi_degradation_image_enhancement_tpu_torch.benchmarks.ab_trees A B [--rounds 2]
     python -m multi_degradation_image_enhancement_tpu_torch.benchmarks.ab_trees A B --train
@@ -29,7 +29,7 @@ and 11; its run directory under ``build/ab_train/`` of that root), then the
 (B=128·256² and B=16·256×384; ``init_cdan`` weights, seed 0, folded; bf16
 inputs drawn U(0, 1)), ``probe_matmul`` on the int8 probe's operands (32 ×
 [1536,512]·[512,2048], ``exp_int8_reprobe.make_operands``) and the serving
-step with ``prefer_cm`` (the CM forward) at B=128·256².
+step (the CM forward at 256²) at B=128·256².
 """
 
 from __future__ import annotations
@@ -144,7 +144,7 @@ def measure_train(root: Path) -> dict:
 
 
 def measure_kernels(root: Path) -> dict:
-    """#9, #11 int8 and the ``prefer_cm`` serving step of the package under ``root``."""
+    """#9, #11 int8 and the serving step of the package under ``root``."""
     sys.path.insert(0, str(root))
     import torch
 
@@ -178,7 +178,7 @@ def measure_kernels(root: Path) -> dict:
     a, b = make_operands(torch.int8)
     rec["probe_int8"] = cuda_ms(lambda: probe_matmul(a, b), 20)
     del a, b
-    step, clean = serving.build_pipeline(BATCH, 256, torch.bfloat16, "cuda", prefer_cm=True)
+    step, clean = serving.build_pipeline(BATCH, 256, torch.bfloat16, "cuda")
     step_gen = torch.Generator().manual_seed(1)
     rec["cm_step_ms"] = cuda_ms(lambda: step(clean, step_gen), 10)
     rec["cm_img_s"] = BATCH / rec["cm_step_ms"] * 1e3
@@ -193,7 +193,7 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true",
                     help="time the training growth layers and the train step")
     ap.add_argument("--kernels", action="store_true",
-                     help="time #9, #11 int8 and the prefer_cm serving step")
+                     help="time #9, #11 int8 and the serving step")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)  # a child process
     args = ap.parse_args(argv)
     if args.train and args.kernels:

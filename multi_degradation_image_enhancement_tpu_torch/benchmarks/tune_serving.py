@@ -7,29 +7,27 @@ own card's measurements, not the TPU's.
         [--batch 128] [--size 256] [--iters 20] [--dry-run] [--max-diff 0.25] \\
         [--device cuda|cpu] [--out PATH]
 
-The sweep is the variants that exist on the card (the JAX sweep's K-stack
-and ``nhwc_io`` are TPU layouts): the per-block or the all-channel-major
-(CM) forward (``prefer_cm``); under CM every conv of ``_CM_CONV_IMPL`` on
-``F.conv2d`` ("xla") or on the conv kernel #8 ("kernel"); and the
+The sweep is the one choice left on the card (the JAX sweep's K-stack and
+``nhwc_io`` are TPU layouts; its per-block / CM choice and the CM conv
+table are gone, since the card's A/B put the CM forward with every conv on
+#8 ahead of both, ``models/cdan_fast.py``): the served forward with the
 DenseBlocks' affine + ReLU in f32 or in bf16 (``db_bf16_act``, at
 ``db_k_stack_max_ci`` 56, the shipped rounding point).  The first variant,
-per-block with f32 activations, is the baseline of the sanity gate: a
-variant whose output is not finite or lies more than ``--max-diff`` from
-the baseline's on the same degraded batch can win nothing, however fast.
+f32 activations, is the baseline of the sanity gate: a variant whose output
+is not finite or lies more than ``--max-diff`` from the baseline's on the
+same degraded batch can win nothing, however fast.
 
 Each variant is the whole degrade→restore step of ``serving.build_pipeline``
 (bf16 on the card, f32 on the CPU), timed with CUDA events over ``--iters``
 steps (on the CPU by the host clock), in turns: every variant once, then
 every variant again in reverse order, the two means averaged, so drift over
-the run does not rank them.  The CM conv A/B is printed whoever wins:
-``_CM_CONV_IMPL``'s default follows it (``models/cdan_fast.py``), as it is a
-module table with no key in the file.
+the run does not rank them.
 
-The winner's ``prefer_cm``, ``db_bf16_act`` and ``db_k_stack_max_ci`` are
-merged into ``--out`` (the port's file unless named; other keys are kept),
-with ``provenance.forward_variants``: the card's name and power limit, the
-date and every variant's ms.  With no sane variant it exits 1 and leaves
-the file untouched; ``--dry-run`` measures only.
+The winner's ``db_bf16_act`` and ``db_k_stack_max_ci`` are merged into
+``--out`` (the port's file unless named; other keys are kept), with
+``provenance.forward_variants``: the card's name and power limit, the date
+and every variant's ms.  With no sane variant it exits 1 and leaves the file
+untouched; ``--dry-run`` measures only.
 """
 
 from __future__ import annotations
@@ -43,36 +41,23 @@ import time
 from typing import List, Optional, Sequence
 
 K_STACK = 56
-# (prefer_cm, cm_conv, db_bf16_act); the first is the sanity gate's baseline
-VARIANTS = [
-    (False, None, False),
-    (False, None, True),
-    (True, "xla", False),
-    (True, "xla", True),
-    (True, "kernel", False),
-    (True, "kernel", True),
-]
+KEYS = ("db_bf16_act", "db_k_stack_max_ci")
+# db_bf16_act of each variant; the first is the sanity gate's baseline
+VARIANTS = [False, True]
 SCRIPT = "multi_degradation_image_enhancement_tpu_torch/benchmarks/tune_serving.py"
 
 
 def label(v: dict) -> str:
-    fwd = f"cm({v['cm_conv']})" if v["prefer_cm"] else "per-block"
-    return f"{fwd} bf16_act={int(v['db_bf16_act'])}"
+    return f"bf16_act={int(v['db_bf16_act'])}"
 
 
 def build_step(batch: int, size: int, dtype, device, variant: dict):
     """The serving step of one variant and its clean batch: the forward built
-    under ``variant``'s tuning keys and, for CM, its conv table."""
-    import contextlib
-
+    under ``variant``'s tuning keys."""
     from multi_degradation_image_enhancement_tpu_torch import serving
-    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
 
-    tuning = {k: variant[k] for k in ("prefer_cm", "db_bf16_act", "db_k_stack_max_ci")}
-    table = (cdan_fast.cm_conv_table(variant["cm_conv"]) if variant["cm_conv"]
-             else contextlib.nullcontext())
-    with table:
-        return serving.build_pipeline(batch, size, dtype, device, tuning=tuning)
+    return serving.build_pipeline(batch, size, dtype, device,
+                                  tuning={k: variant[k] for k in KEYS})
 
 
 def sweep(batch: int, size: int, iters: int, device, max_diff: float) -> List[dict]:
@@ -85,9 +70,8 @@ def sweep(batch: int, size: int, iters: int, device, max_diff: float) -> List[di
     timer = cuda_ms if device.type == "cuda" else host_ms
     results, steps = [], {}
     ref = None
-    for prefer_cm, cm_conv, bf16_act in VARIANTS:
-        v = {"prefer_cm": prefer_cm, "cm_conv": cm_conv, "db_bf16_act": bf16_act,
-             "db_k_stack_max_ci": K_STACK}
+    for bf16_act in VARIANTS:
+        v = {"db_bf16_act": bf16_act, "db_k_stack_max_ci": K_STACK}
         try:
             step, clean = build_step(batch, size, dtype, device, v)
             # the same σ and noise seed for every variant
@@ -121,20 +105,6 @@ def sweep(batch: int, size: int, iters: int, device, max_diff: float) -> List[di
     return results
 
 
-def cm_conv_ab(results: List[dict]) -> dict:
-    """The CM forward's ms with every conv on ``F.conv2d`` and on #8, at each
-    ``db_bf16_act``, and the conv table the faster side picks."""
-    ab = {}
-    for bf16_act in (False, True):
-        ms = {r["cm_conv"]: r.get("ms_per_step") for r in results
-              if r["prefer_cm"] and r["db_bf16_act"] == bf16_act}
-        if ms.get("xla") and ms.get("kernel"):
-            ab[f"bf16_act={int(bf16_act)}"] = {
-                "xla_ms": ms["xla"], "kernel_ms": ms["kernel"],
-                "faster": "kernel" if ms["kernel"] < ms["xla"] else "xla"}
-    return ab
-
-
 def write_tuning(path: str, best: dict, provenance: dict) -> None:
     """Merge the winner's keys into ``path``, keeping keys other tuners own."""
     cfg = {}
@@ -144,7 +114,7 @@ def write_tuning(path: str, best: dict, provenance: dict) -> None:
                 cfg = json.load(f)
         except ValueError:
             cfg = {}
-    cfg.update({k: best[k] for k in ("prefer_cm", "db_bf16_act", "db_k_stack_max_ci")})
+    cfg.update({k: best[k] for k in KEYS})
     prov = cfg.get("provenance")
     if not isinstance(prov, dict):
         prov = {}
@@ -176,10 +146,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     device = resolve_device(args.device)
     results = sweep(args.batch, args.size, args.iters, device, args.max_diff)
-    ab = cm_conv_ab(results)
-    for key, r in ab.items():
-        print(f"CM conv A/B ({key}): F.conv2d {r['xla_ms']:.3f} ms, #8 {r['kernel_ms']:.3f} ms "
-              f"-> {r['faster']}", flush=True)
     eligible = [r for r in results if r["sane"] and "ms_per_step" in r]
     if not eligible:
         print("no sane variant; tuning file untouched", flush=True)
@@ -200,8 +166,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     write_tuning(args.out, best, {
         "script": SCRIPT, **card, "batch": args.batch, "size": args.size, "iters": args.iters,
         "dtype": "bfloat16" if device.type == "cuda" else "float32",
-        "date_utc": time.strftime("%Y-%m-%d", time.gmtime()), "cm_conv_ab": ab,
-        "results": results})
+        "date_utc": time.strftime("%Y-%m-%d", time.gmtime()), "results": results})
     print(f"wrote {args.out}", flush=True)
     return 0
 

@@ -17,9 +17,8 @@ They differ where the JAX package's do.  :func:`build_fast_apply` runs the
 folded convs as ``F.conv2d`` (XLA's convs in the JAX package), conv1's pool
 as ``F.max_pool2d`` and CBAM as the plain modules.
 :func:`build_fast_apply_cm` runs conv1 + BN + ReLU + 2×2 pool as one kernel
-(``ops.cuda.conv_cm.conv3x3_pool``, TPU kernel #9), the other convs as
-``F.conv2d`` or as the conv kernel (``conv3x3``, #8) per
-:data:`_CM_CONV_IMPL`, and CBAM with its spatial BatchNorm folded
+(``ops.cuda.conv_cm.conv3x3_pool``, TPU kernel #9), every other conv as the
+conv kernel (``conv3x3``, #8), and CBAM with its spatial BatchNorm folded
 (:func:`_cbam_cm`).  The port's channel-major layout is plain NCHW, so both
 keep NCHW inside.  The JAX package's third DenseBlock route, the row-tiled
 ``_run_cm`` (#3) for images whose whole-image kernel does not fit VMEM, has
@@ -28,9 +27,9 @@ no branch here: the CUDA DenseBlock covers whole images at every size.
 Activations are in ``dtype`` inside; the forwards take and return NHWC,
 [0, 1] in, f32 out.  Numerical contract: equal to ``CDAN`` in eval mode to
 bf16 tolerance at ``dtype=bfloat16`` (the kernels hold features and operands
-in bf16) and to f32 tolerance at ``dtype=float32`` on the CPU with the
-per-block forward (the CM forward's conv1 kernel takes bf16 operands at any
-dtype, as the TPU kernel does).  The serving tuning file's ``db_bf16_act``
+in bf16) and to f32 tolerance at ``dtype=float32`` on the CPU with
+:func:`build_fast_apply` (the CM forward's conv kernels take bf16 operands
+at any dtype, as the TPU kernels do).  The serving tuning file's ``db_bf16_act``
 and ``db_k_stack_max_ci`` reach every DenseBlock pack (:func:`serving_tuning`),
 as the JAX package's ``_DB_BF16_ACT`` reaches its DenseBlock calls.
 
@@ -45,12 +44,11 @@ built forward is ``serve/forward``, each bilinear ×2 with its add
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import json
 import os
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -187,46 +185,14 @@ def build_fast_apply(
 
 # ---------------------------------------------------- all-channel-major forward
 
-# Per-layer conv implementation of the CM forward, the JAX package's table
-# (``cdan_fast.py:187-195``) with its keys: "xla" is ``F.conv2d`` on the
-# folded weights, as the per-block forward runs it; "kernel" is the conv
-# kernel (``ops.cuda.conv_cm.conv3x3``, TPU kernel #8; its plain version on
-# the CPU).  Defaults follow the in-context A/B on the card: the port's tuner
-# (``benchmarks/tune_serving.py``, ``config/serving_tuning.json``
-# ``cm_conv_ab``, NVIDIA H100 80GB HBM3, 700.00 W, 2026-10-17) timed the CM
-# step at B=128·256² bf16 with every conv on #8 at 27.496 ms against 30.944
-# with every conv on ``F.conv2d`` (27.332 against 30.873 under
-# ``db_bf16_act``).  Read when a forward is built; patch it to A/B the kernel
-# (``cm_conv_table``).
-_CM_CONV_IMPL: Dict[str, str] = {
-    "conv2": "kernel",
-    "conv3": "kernel",
-    "conv4": "kernel",
-    "de1": "kernel",
-    "de2": "kernel",
-    "de3": "kernel",
-    "de4": "kernel",
-}
-
-
-def cm_conv_choice() -> str:
-    """:data:`_CM_CONV_IMPL` in one word: "xla" or "kernel" where every
-    entry says so, else "mixed"."""
-    values = set(_CM_CONV_IMPL.values())
-    return values.pop() if len(values) == 1 else "mixed"
-
-
-@contextlib.contextmanager
-def cm_conv_table(impl: str) -> Iterator[None]:
-    """Every entry of :data:`_CM_CONV_IMPL` set to ``impl`` ("xla" or
-    "kernel") for the forwards built inside the block; the table is restored
-    after it."""
-    saved = dict(_CM_CONV_IMPL)
-    _CM_CONV_IMPL.update(dict.fromkeys(saved, impl))
-    try:
-        yield
-    finally:
-        _CM_CONV_IMPL.update(saved)
+# The CM forward's convs after conv1, all on the conv kernel (#8).  The JAX
+# package picks each one's implementation from a table (``cdan_fast.py:187-195``);
+# the port has none: the card's A/B (``benchmarks/tune_serving.py``,
+# ``config/serving_tuning.json`` provenance, NVIDIA H100 80GB HBM3, 700.00 W,
+# 2026-10-17) timed the CM step at B=128·256² bf16 with every conv on #8 at
+# 27.496 ms against 30.944 with every conv on ``F.conv2d`` (27.332 against
+# 30.873 under ``db_bf16_act``).
+_CM_CONVS = ("conv2", "conv3", "conv4", "de1", "de2", "de3", "de4")
 
 
 def pack_cbam_cm(cbam, device=None, dtype=torch.float32) -> Dict[str, torch.Tensor]:
@@ -278,38 +244,23 @@ def build_fast_apply_cm(
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build the all-channel-major inference forward from an eval ``CDAN``
     (``cdan_fast.py:268-377``): conv1 + BN + ReLU + pool through
-    ``conv3x3_pool``, the other convs per :data:`_CM_CONV_IMPL` (read now),
-    DenseBlocks through the DenseBlock kernel, folded CBAMs.  Same contract
-    as :func:`build_fast_apply` (``bf16_act`` / ``k_stack_max_ci`` too,
-    ``cdan_fast.py:307-308``); H a multiple of 8 and W of 16
-    (:func:`cm_forward_supported`)."""
+    ``conv3x3_pool``, the other convs (:data:`_CM_CONVS`) through
+    ``conv3x3``, DenseBlocks through the DenseBlock kernel, folded CBAMs.
+    Same contract as :func:`build_fast_apply` (``bf16_act`` /
+    ``k_stack_max_ci`` too, ``cdan_fast.py:307-308``); H a multiple of 8
+    and W of 16 (:func:`cm_forward_supported`)."""
     device = resolve_device(device)
-    impl = dict(_CM_CONV_IMPL)
-    bad = {name: v for name, v in impl.items() if v not in ("xla", "kernel")}
-    if bad:
-        raise ValueError(f"_CM_CONV_IMPL values must be 'xla' or 'kernel', got {bad}")
     folded = _fold_all(model)
     conv1 = pack_conv_pool(*folded["conv1"], device=device)
-    kernel_packs = {name: pack_conv(*folded[name], device=device)
-                    for name, v in impl.items() if v == "kernel"}
-    xla_weights = {name: (folded[name][0].to(device=device, dtype=dtype).contiguous(),
-                          folded[name][1].to(device=device, dtype=dtype))
-                   for name, v in impl.items() if v == "xla"}
+    convs = {name: pack_conv(*folded[name], device=device) for name in _CM_CONVS}
     packs = _pack_dense_blocks(model, device, bf16_act, k_stack_max_ci)
     dec = model.decoder
     cbams = {name: pack_cbam_cm(mod, device, dtype)
              for name, mod in (("bottleneck", model.bottleneck), ("cbam1", dec.cbam1),
                                ("cbam2", dec.cbam2), ("cbam3", dec.cbam3))}
     frozen = [conv1.w_bf16, conv1.bias]
-    frozen += [t for p in kernel_packs.values() for t in (p.w_bf16, p.bias)]
-    frozen += [t for wb in xla_weights.values() for t in wb]
+    frozen += [t for p in convs.values() for t in (p.w_bf16, p.bias)]
     frozen += [t for p in cbams.values() for t in p.values()]
-
-    def conv(x: torch.Tensor, name: str) -> torch.Tensor:
-        if name in kernel_packs:
-            return conv3x3(x, kernel_packs[name])
-        w, b = xla_weights[name]
-        return torch.relu(F.conv2d(x, w, b, padding=1))
 
     def apply_fn(x_nhwc: torch.Tensor) -> torch.Tensor:
         require_no_grad("the serving forward", [x_nhwc, *frozen])
@@ -322,23 +273,23 @@ def build_fast_apply_cm(
         out = conv3x3_pool(x, conv1)  # conv1 + BN + ReLU + 2×2 pool, one pass
         d1 = dense_block(out, packs["dense1"])
         skip0 = out
-        out = _maxpool2x2_cm(conv(out, "conv2"))
+        out = _maxpool2x2_cm(conv3x3(out, convs["conv2"]))
         d2 = dense_block(out, packs["dense2"])
         skip1 = out
-        out = _maxpool2x2_cm(conv(out, "conv3"))
+        out = _maxpool2x2_cm(conv3x3(out, convs["conv3"]))
         d3 = dense_block(out, packs["dense3"])
         skip2 = out
-        out = _cbam_cm(conv(out, "conv4"), cbams["bottleneck"])
+        out = _cbam_cm(conv3x3(out, convs["conv4"]), cbams["bottleneck"])
 
-        out = _cbam_cm(conv(out, "de1") + skip2, cbams["cbam1"])
+        out = _cbam_cm(conv3x3(out, convs["de1"]) + skip2, cbams["cbam1"])
         out = out * d3
-        out = _cbam_cm(_upsample_x2_add(conv(out, "de2"), skip1), cbams["cbam2"])
+        out = _cbam_cm(_upsample_x2_add(conv3x3(out, convs["de2"]), skip1), cbams["cbam2"])
         out = out * d2
-        out = _cbam_cm(_upsample_x2_add(conv(out, "de3"), skip0), cbams["cbam3"])
+        out = _cbam_cm(_upsample_x2_add(conv3x3(out, convs["de3"]), skip0), cbams["cbam3"])
         out = out * d1
         # de4 has 3 outputs; the TPU kernel pads them to 16 and slices back
         # (:368), the CUDA kernel writes 3.  de4 keeps its ReLU.
-        out = _upsample_x2_add(conv(out, "de4"), x)  # global residual
+        out = _upsample_x2_add(conv3x3(out, convs["de4"]), x)  # global residual
         out = torch.sigmoid(dense_block(out, packs["final_dense"]))
         return out.permute(0, 2, 3, 1).float()
 
@@ -365,65 +316,62 @@ def serving_tuning() -> Dict[str, Any]:
     """The serving tuning the port reads from its own
     ``config/serving_tuning.json``, or from the file ``$MDIE_SERVING_TUNING``
     names, as ``_load_serving_tuning`` (``cdan_fast.py:215-249``) reads the
-    JAX package's: ``prefer_cm`` (false), ``db_bf16_act`` (false) and
-    ``db_k_stack_max_ci`` (0, the JAX kernel's ``_K_STACK_MAX_CI``), those
-    defaults where the file or a key is missing or the file does not parse.
-    The port's file is written by its tuner on the card
-    (``benchmarks/tune_serving.py``); the JAX package's file holds the TPU's
-    choice and is never read here.
+    JAX package's: ``db_bf16_act`` (false) and ``db_k_stack_max_ci`` (0, the
+    JAX kernel's ``_K_STACK_MAX_CI``), those defaults where the file or a key
+    is missing or the file does not parse.  The port's file is written by
+    its tuner on the card (``benchmarks/tune_serving.py``); the JAX
+    package's file holds the TPU's choice and is never read here.
 
     ``db_k_stack_max_ci`` picks a TPU layout (dx taps stacked on the
     contraction axis) that also keeps its layers' activations in f32, so it
     moves a rounding point only with ``db_bf16_act`` on
     (``ops.cuda.dense_block``).  The JAX file's other keys have no place
-    here: ``db_nhwc_io`` (NHWC blocks transposed in VMEM) moves no rounding
-    point on the card, and ``fused_noise`` / ``fused_noise_bf16`` pick
-    between the noise kernel and a plain draw, while the port's serving step
-    always runs the noise kernel (#1) on the card, since a plain draw on the
-    main path would hide it.
+    here: its forward choice, since the image's shape alone picks the
+    forward (:func:`build_serving_apply`); ``db_nhwc_io`` (NHWC blocks
+    transposed in VMEM), which moves no rounding point on the card; and
+    ``fused_noise`` / ``fused_noise_bf16``, which pick between the noise
+    kernel and a plain draw, while the port's serving step always runs the
+    noise kernel (#1) on the card, since a plain draw on the main path would
+    hide it.
     """
-    out = {"prefer_cm": False, "db_bf16_act": False, "db_k_stack_max_ci": 0}
+    out = {"db_bf16_act": False, "db_k_stack_max_ci": 0}
     path = os.environ.get(TUNING_ENV) or str(_TUNING_PATH)
     try:
         with open(path, encoding="utf-8") as f:
             cfg = json.load(f)
     except (OSError, ValueError):
         return out
-    out["prefer_cm"] = bool(cfg.get("prefer_cm", False))
     out["db_bf16_act"] = bool(cfg.get("db_bf16_act", False))
     if cfg.get("db_k_stack_max_ci") is not None:
         out["db_k_stack_max_ci"] = int(cfg["db_k_stack_max_ci"])
     return out
 
 
-def serving_prefer_cm() -> bool:
-    """``prefer_cm`` of the serving tuning file (:func:`serving_tuning`)."""
-    return serving_tuning()["prefer_cm"]
-
-
 def build_serving_apply(
-    model: CDAN, dtype=torch.bfloat16, device="cuda", prefer_cm=None,
-    tuning: Optional[Dict[str, Any]] = None,
+    model: CDAN, dtype=torch.bfloat16, device="cuda", tuning: Optional[Dict[str, Any]] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The serving forward (``cdan_fast.py:406-425``): with ``prefer_cm`` the
-    CM forward for every image size it takes (:func:`cm_forward_supported`,
-    checked per call) and the per-block forward for the rest; without it the
-    per-block forward.  ``tuning`` holds the keys :func:`serving_tuning`
-    returns (None: the serving tuning file; the tuner passes each variant's);
-    ``prefer_cm=None`` takes its ``prefer_cm``, and both forwards take its
-    ``db_bf16_act`` and ``db_k_stack_max_ci``."""
+    """The serving forward (``cdan_fast.py:406-425``): the CM forward for
+    every image size it takes (:func:`cm_forward_supported`, checked per
+    call) and the per-block forward for the rest.  The per-block forward is
+    built from ``model`` at the first call whose size needs it, outside
+    ``inference_mode`` (under ``pipeline.cuda_graphed`` that is an eager
+    warm-up call, before any capture).  ``tuning`` holds the keys
+    :func:`serving_tuning` returns (None: the serving tuning file; the tuner
+    passes each variant's); both forwards take its ``db_bf16_act`` and
+    ``db_k_stack_max_ci``."""
     if tuning is None:
         tuning = serving_tuning()
-    if prefer_cm is None:
-        prefer_cm = tuning["prefer_cm"]
     act = {"bf16_act": tuning["db_bf16_act"], "k_stack_max_ci": tuning["db_k_stack_max_ci"]}
-    per_block = build_fast_apply(model, dtype, device, **act)
-    if not prefer_cm:
-        return per_block
     cm = build_fast_apply_cm(model, dtype, device, **act)
+    per_block: List[Callable[[torch.Tensor], torch.Tensor]] = []
 
     def apply_fn(x_nhwc: torch.Tensor) -> torch.Tensor:
         _, h, w, _ = x_nhwc.shape
-        return cm(x_nhwc) if cm_forward_supported(h, w) else per_block(x_nhwc)
+        if cm_forward_supported(h, w):
+            return cm(x_nhwc)
+        if not per_block:
+            with torch.inference_mode(False):
+                per_block.append(build_fast_apply(model, dtype, device, **act))
+        return per_block[0](x_nhwc)
 
     return apply_fn

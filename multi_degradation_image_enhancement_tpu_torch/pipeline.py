@@ -88,7 +88,6 @@ from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN, eval
 from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import (
     build_serving_apply,
     cm_forward_supported,
-    serving_tuning,
 )
 from multi_degradation_image_enhancement_tpu_torch.ops.degradations import DEGRADATIONS
 from multi_degradation_image_enhancement_tpu_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS
@@ -150,21 +149,21 @@ class ExpertForward:
     """One expert's forward as :func:`load_expert_bank` builds it, with two
     plain host counters of the calls, from the input's shape (no sync):
     ``cm_calls``, the calls the serving forward ran as its CM forward
-    (``prefer_cm`` and :func:`cm_forward_supported`, its own rule), and
-    ``per_block_calls``, those it ran per block; both stay 0 on the module
-    route (``prefer_cm`` None).  The bank counts here, outside the CUDA
-    graph ``forward`` replays, so every replay counts; ``captures`` is that
-    graph's count (:func:`cuda_graphed`)."""
+    (:func:`cm_forward_supported`, its own rule), and ``per_block_calls``,
+    those it ran per block; both stay 0 on the module route (``serving``
+    false).  The bank counts here, outside the CUDA graph ``forward``
+    replays, so every replay counts; ``captures`` is that graph's count
+    (:func:`cuda_graphed`)."""
 
-    def __init__(self, forward: Forward, prefer_cm: Optional[bool] = None):
+    def __init__(self, forward: Forward, serving: bool = False):
         self.forward = forward
-        self.prefer_cm = prefer_cm
+        self.serving = serving
         self.cm_calls = 0
         self.per_block_calls = 0
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if self.prefer_cm is not None:
-            if self.prefer_cm and cm_forward_supported(x.shape[1], x.shape[2]):
+        if self.serving:
+            if cm_forward_supported(x.shape[1], x.shape[2]):
                 self.cm_calls += 1
             else:
                 self.per_block_calls += 1
@@ -179,9 +178,7 @@ def _serving_expert(model: CDAN, dtype, device) -> ExpertForward:
     """The card's expert: the hand-kernel serving forward
     (``build_serving_apply``) on the serving tuning file, as the eval
     engine builds it on CUDA."""
-    tuning = serving_tuning()
-    return ExpertForward(build_serving_apply(model, dtype, device, tuning=tuning),
-                         tuning["prefer_cm"])
+    return ExpertForward(build_serving_apply(model, dtype, device), serving=True)
 
 
 def load_expert_bank(weight_paths: Dict[str, str], device, dtype,

@@ -41,7 +41,6 @@ def build_pipeline(
     device="cuda",
     *,
     generator: Optional[torch.Generator] = None,
-    prefer_cm: Optional[bool] = None,
     tuning: Optional[Dict[str, Any]] = None,
 ) -> Tuple[Callable[[torch.Tensor, torch.Generator], torch.Tensor], torch.Tensor]:
     """Build the serving step and its clean input batch.
@@ -52,14 +51,14 @@ def build_pipeline(
     0..255, on ``device``) and a generator for σ and the noise seed (a CPU
     generator keeps the draw off the device), and returns the restored batch
     (NHWC, f32, [0, 1]).  The step takes any batch and H, W multiples of 8.
-    ``prefer_cm`` and ``tuning`` pick the forward as ``build_serving_apply``
-    does (None: the serving tuning file).
+    ``tuning`` reaches ``build_serving_apply`` (None: the serving tuning
+    file).
     """
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = init_cdan(generator)
-    forward = build_serving_apply(model, dtype, device, prefer_cm, tuning)
+    forward = build_serving_apply(model, dtype, device, tuning)
     noise_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
 
     def step(clean255: torch.Tensor, gen: torch.Generator) -> torch.Tensor:

@@ -9,7 +9,6 @@ import signal
 import subprocess
 import sys
 
-from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
 from tests.torch_train_cli import ROOT
 
 MODULE = "multi_degradation_image_enhancement_tpu_torch.bench"
@@ -81,13 +80,11 @@ def test_sigterm_prints_the_best_so_far_once():
 
 def test_reported_forward_follows_the_tuning_file(tmp_path):
     tuning = tmp_path / "tuning.json"
-    tuning.write_text(json.dumps({"prefer_cm": True, "db_bf16_act": True,
-                                  "db_k_stack_max_ci": 40}))
+    tuning.write_text(json.dumps({"db_bf16_act": True, "db_k_stack_max_ci": 40}))
     rc, line, err = _bench("--device", "cpu", MDIE_SERVING_TUNING=str(tuning))
     assert rc == 0, err[-2000:]
-    assert (line["prefer_cm"], line["db_bf16_act"], line["db_k_stack_max_ci"]) == (True, True, 40)
-    assert line["cm_conv"] == cdan_fast.cm_conv_choice()
-    tuning.write_text(json.dumps({"prefer_cm": False}))
+    assert (line["db_bf16_act"], line["db_k_stack_max_ci"]) == (True, 40)
+    tuning.write_text(json.dumps({}))
     rc, line, err = _bench("--device", "cpu", MDIE_SERVING_TUNING=str(tuning))
     assert rc == 0, err[-2000:]
-    assert (line["prefer_cm"], line["db_bf16_act"], line["db_k_stack_max_ci"]) == (False, False, 0)
+    assert (line["db_bf16_act"], line["db_k_stack_max_ci"]) == (False, 0)

@@ -17,12 +17,18 @@ from multi_degradation_image_enhancement_tpu.ops.pallas.noise import _bits_to_no
 from multi_degradation_image_enhancement_tpu.utils.torch_port import port_reference_cdan
 from multi_degradation_image_enhancement_tpu_torch import serving
 from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
-from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_serving_apply
+from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
+from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import (
+    build_fast_apply,
+    build_serving_apply,
+)
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.noise import bits_to_noise01
 from multi_degradation_image_enhancement_tpu_torch.utils.jax_port import flax_to_state_dict
 
 H, W = 16, 32
 N_PARAMS = 3_585_663
+# the JAX package's served DenseBlocks: f32 activations, whatever the port's tuning file chose
+PER_BLOCK_ACT = {"bf16_act": False, "k_stack_max_ci": 56}
 
 
 @pytest.fixture(scope="module")
@@ -43,17 +49,6 @@ def port_cdan(jax_cdan):
     model = CDAN()
     model.load_state_dict(flax_to_state_dict(jax_cdan[1]), strict=True)
     return model.eval()
-
-
-@pytest.fixture
-def per_block_tuning(monkeypatch, tmp_path):
-    """The serving forward pinned to the JAX package's served one (per-block,
-    f32 activations), which these tests hold the port against, whatever the
-    port's own tuning file chose on the card."""
-    path = tmp_path / "serving_tuning_per_block.json"
-    path.write_text(json.dumps({"prefer_cm": False, "db_bf16_act": False,
-                                "db_k_stack_max_ci": 56}))
-    monkeypatch.setenv("MDIE_SERVING_TUNING", str(path))
 
 
 def _tree_leaves(tree):
@@ -88,10 +83,10 @@ def test_module_matches_jax(jax_cdan, port_cdan):
     assert np.abs(got - want).max() <= 2e-4  # README.md:34, the reference-transplant bar
 
 
-@pytest.mark.usefixtures("per_block_tuning")
 def test_serving_slice_matches_jax(jax_cdan, port_cdan):
     """Clean batch → noise degrade on the same bits → restoring forward, on
-    both sides; the port's forward is ``build_serving_apply`` in f32 (plain
+    both sides; the port's forward is the per-block ``build_fast_apply`` in
+    f32 with f32 activations (the JAX package's served one; plain
     DenseBlocks on the CPU), fed the JAX-degraded batch."""
     b = 2
     clean = serving.clean_batch(b, H, W).numpy()
@@ -116,19 +111,19 @@ def test_serving_slice_matches_jax(jax_cdan, port_cdan):
     assert (diff > 1e-6).mean() < 1e-3 and diff.max() <= 1.0 / 255.0 + 1e-6
 
     want = jax_cdan[2](jax_degraded)
-    forward = build_serving_apply(port_cdan, torch.float32, "cpu")
+    forward = build_fast_apply(port_cdan, torch.float32, "cpu", **PER_BLOCK_ACT)
     got = forward(torch.from_numpy(jax_degraded)).numpy()
     err = np.abs(got - want)
     assert got.shape == want.shape
     assert err.max() <= 1e-3 and err.mean() <= 1e-4
 
 
-@pytest.mark.usefixtures("per_block_tuning")
 def test_bf16_serving_forward_matches_jax(jax_cdan, port_cdan):
-    """At bf16 the serving forward holds the bf16 bar of tests/test_cdan_fast.py:36-37."""
+    """At bf16 the per-block forward with f32 activations (the JAX package's
+    served one) holds the bf16 bar of tests/test_cdan_fast.py:36-37."""
     x = np.random.RandomState(3).rand(2, H, W, 3).astype(np.float32)
     want = jax_cdan[2](x)
-    got = build_serving_apply(port_cdan, torch.bfloat16, "cpu")(torch.from_numpy(x))
+    got = build_fast_apply(port_cdan, torch.bfloat16, "cpu", **PER_BLOCK_ACT)(torch.from_numpy(x))
     assert got.dtype == torch.float32
     err = np.abs(got.numpy() - want)
     assert err.max() < 2e-2 and err.mean() < 2e-3
@@ -156,17 +151,16 @@ def live_cdan(jax_cdan):
     return live, model.eval(), lambda z: np.asarray(apply(live, jnp.asarray(z)))
 
 
-@pytest.mark.parametrize("conv_impl", ["xla", "kernel"])
-def test_cm_forward_matches_jax_and_module(live_cdan, conv_impl, monkeypatch):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cm_forward_matches_jax_and_module(live_cdan, dtype):
     """The all-channel-major forward at 1×16×32, weights carried across and
-    BN statistics perturbed, against JAX ``build_fast_apply_cm`` (interpret
-    mode, its default conv table) and against the port's f32 ``CDAN``, with
-    the CM forward's bar (tests/test_cdan_fast.py:108-109).  ``kernel`` runs
-    every conv through the #8 plain version."""
+    BN statistics perturbed, every conv after conv1 through the #8 plain
+    version, against JAX ``build_fast_apply_cm`` (interpret mode, its
+    default conv table) and against the port's f32 ``CDAN``, with the CM
+    forward's bar (tests/test_cdan_fast.py:108-109)."""
     from multi_degradation_image_enhancement_tpu.models.cdan_fast import (
         build_fast_apply_cm as jax_build_cm,
     )
-    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
 
     variables, model, apply_module = live_cdan
     x = np.random.RandomState(4).rand(1, H, W, 3).astype(np.float32)
@@ -175,68 +169,69 @@ def test_cm_forward_matches_jax_and_module(live_cdan, conv_impl, monkeypatch):
     assert module.std() > 0.1  # the restoration path is live, not a constant map
     assert np.abs(want - module).max() < 2e-2
 
-    for name in cdan_fast._CM_CONV_IMPL:
-        monkeypatch.setitem(cdan_fast._CM_CONV_IMPL, name, conv_impl)
     with torch.no_grad():
         ref = model(torch.from_numpy(x)).numpy()
-    for dt in (torch.float32, torch.bfloat16):
-        got = cdan_fast.build_fast_apply_cm(model, dt, "cpu")(torch.from_numpy(x))
-        assert got.shape == (1, H, W, 3) and got.dtype == torch.float32
-        for other in (want, ref):
-            err = np.abs(got.numpy() - other)
-            assert err.max() < 2e-2 and err.mean() < 2e-3, (dt, err.max(), err.mean())
+    got = cdan_fast.build_fast_apply_cm(model, dtype, "cpu")(torch.from_numpy(x))
+    assert got.shape == (1, H, W, 3) and got.dtype == torch.float32
+    for other in (want, ref):
+        err = np.abs(got.numpy() - other)
+        assert err.max() < 2e-2 and err.mean() < 2e-3, (err.max(), err.mean())
 
 
 def test_serving_apply_dispatches_by_preference_and_shape(port_cdan, tmp_path, monkeypatch):
-    """``build_serving_apply``: with ``prefer_cm`` the CM forward for shapes it
-    takes and the per-block forward for the rest; without it (the shipped
-    tuning file, the port's own, says so) always the per-block forward;
-    ``MDIE_SERVING_TUNING`` names another tuning file (tests/test_cdan_fast.py:112-139)."""
-    import json
-
-    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
-
-    calls, acts = [], []
+    """``build_serving_apply``: the CM forward for every shape it takes and
+    the per-block forward for the rest, built once, at the first call that
+    needs it and outside ``inference_mode``; the tuning file that
+    ``MDIE_SERVING_TUNING`` names reaches both builds (tests/test_cdan_fast.py:112-139)."""
+    calls, builds = [], []
 
     def builder(name):
         def build(*args, **kw):
-            acts.append((name, kw))
+            builds.append((name, kw, torch.is_inference_mode_enabled()))
             return lambda x: calls.append(name)
         return build
 
     monkeypatch.setattr(cdan_fast, "build_fast_apply_cm", builder("cm"))
     monkeypatch.setattr(cdan_fast, "build_fast_apply", builder("v1"))
-
-    fn = cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu", prefer_cm=True)
-    fn(torch.zeros(1, 32, 48, 3))  # supported -> cm
-    fn(torch.zeros(1, 8, 8, 3))    # w % 16 != 0 -> v1
-    fn(torch.zeros(1, 12, 32, 3))  # h % 8 != 0 -> v1
-    assert calls == ["cm", "v1", "v1"]
-    assert cdan_fast.cm_forward_supported(256, 384)  # the JAX package's VMEM bound says no
-
-    calls.clear()
-    monkeypatch.delenv(cdan_fast.TUNING_ENV, raising=False)
-    shipped = json.loads(cdan_fast._TUNING_PATH.read_text())["prefer_cm"]  # the port's own file
-    assert cdan_fast.serving_prefer_cm() is shipped
-    cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")(torch.zeros(1, 32, 48, 3))
-    assert calls == ["cm" if shipped else "v1"]
-
     tuning = tmp_path / "tuning.json"
-    tuning.write_text(json.dumps({"prefer_cm": True, "db_k_stack_max_ci": 56, "db_nhwc_io": True}))
+    tuning.write_text(json.dumps({"db_bf16_act": True, "db_k_stack_max_ci": 40, "db_nhwc_io": True}))
     monkeypatch.setenv(cdan_fast.TUNING_ENV, str(tuning))
-    calls.clear()
-    cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")(torch.zeros(1, 32, 48, 3))
-    assert calls == ["cm"]
-    monkeypatch.setenv(cdan_fast.TUNING_ENV, str(tmp_path / "missing.json"))
-    assert cdan_fast.serving_prefer_cm() is False
-    # db_bf16_act (and the K-stack threshold it makes a rounding point) reach
-    # both forwards (tests/test_torch_dense_block_bf16act.py holds the math)
-    tuning.write_text(json.dumps({"prefer_cm": True, "db_bf16_act": True}))
-    monkeypatch.setenv(cdan_fast.TUNING_ENV, str(tuning))
-    acts.clear()
-    cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")
-    assert acts == [(name, {"bf16_act": True, "k_stack_max_ci": 0}) for name in ("v1", "cm")]
-    tuning.write_text(json.dumps({"db_bf16_act": True, "db_k_stack_max_ci": 56}))
-    acts.clear()
-    cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")
-    assert acts == [("v1", {"bf16_act": True, "k_stack_max_ci": 56})]
+    act = {"bf16_act": True, "k_stack_max_ci": 40}
+
+    fn = cdan_fast.build_serving_apply(port_cdan, torch.float32, "cpu")
+    assert builds == [("cm", act, False)]  # no per-block forward yet
+    fn(torch.zeros(1, 32, 48, 3))  # supported -> cm
+    assert len(builds) == 1
+    with torch.inference_mode():
+        fn(torch.zeros(1, 8, 8, 3))  # w % 16 != 0 -> v1, built now
+    assert builds == [("cm", act, False), ("v1", act, False)]
+    fn(torch.zeros(1, 12, 32, 3))  # h % 8 != 0 -> v1, not built again
+    fn(torch.zeros(1, 256, 384, 3))  # the JAX package's VMEM bound says no; the port takes it
+    assert len(builds) == 2
+    assert calls == ["cm", "v1", "v1", "cm"]
+
+
+@pytest.mark.parametrize("tuning_file", ["stale_prefer_cm_false", "no_tuning_file"])
+def test_served_forward_is_chosen_by_shape_alone(live_cdan, tmp_path, monkeypatch, tuning_file):
+    """Whatever a tuning file says of the forward (an older file's
+    ``"prefer_cm": false``, or no file at all), ``build_serving_apply``
+    serves the CM forward at a shape it takes (32×48) and the per-block
+    forward at one it does not (40×40: W no multiple of 16), bit for bit."""
+    model = live_cdan[1]
+    path = tmp_path / "serving_tuning.json"
+    if tuning_file == "stale_prefer_cm_false":
+        path.write_text(json.dumps({"prefer_cm": False, "db_bf16_act": True,
+                                    "db_k_stack_max_ci": 56}))
+    monkeypatch.setenv(cdan_fast.TUNING_ENV, str(path))
+    assert cdan_fast.serving_tuning() == ({"db_bf16_act": True, "db_k_stack_max_ci": 56}
+                                          if path.exists() else
+                                          {"db_bf16_act": False, "db_k_stack_max_ci": 0})
+    served = build_serving_apply(model, torch.float32, "cpu")
+    rng = np.random.RandomState(6)
+    x_cm = torch.from_numpy(rng.rand(1, 32, 48, 3).astype(np.float32))
+    x_pb = torch.from_numpy(rng.rand(1, 40, 40, 3).astype(np.float32))
+    cm = cdan_fast.build_fast_apply_cm(model, torch.float32, "cpu")
+    per_block = build_fast_apply(model, torch.float32, "cpu")
+    assert torch.equal(served(x_cm), cm(x_cm))
+    assert not torch.equal(served(x_cm), per_block(x_cm))  # the two forwards round apart
+    assert torch.equal(served(x_pb), per_block(x_pb))

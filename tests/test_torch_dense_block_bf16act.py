@@ -170,16 +170,14 @@ def test_serving_forward_with_a_bf16_act_tuning_file_matches_jax(tmp_path, monke
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
     model.eval()
     tuning = tmp_path / "tuning.json"
-    tuning.write_text(json.dumps({"prefer_cm": False, "db_bf16_act": True,
-                                  "db_k_stack_max_ci": 56}))
+    tuning.write_text(json.dumps({"db_bf16_act": True, "db_k_stack_max_ci": 56}))
     monkeypatch.setenv(cdan_fast.TUNING_ENV, str(tuning))
-    assert cdan_fast.serving_tuning() == {"prefer_cm": False, "db_bf16_act": True,
-                                          "db_k_stack_max_ci": 56}
-    with monkeypatch.context() as m:  # without the env: the port's own file, its three keys
+    assert cdan_fast.serving_tuning() == {"db_bf16_act": True, "db_k_stack_max_ci": 56}
+    with monkeypatch.context() as m:  # without the env: the port's own file, its two keys
         m.delenv(cdan_fast.TUNING_ENV)
         shipped = json.loads(cdan_fast._TUNING_PATH.read_text())
         assert cdan_fast.serving_tuning() == {k: shipped[k] for k in (
-            "prefer_cm", "db_bf16_act", "db_k_stack_max_ci")}
+            "db_bf16_act", "db_k_stack_max_ci")}
     packs = cdan_fast._pack_dense_blocks(model, "cpu")
     assert all(p.bf16_act and p.k_stack_max_ci == 56 for p in packs.values())
     got = cdan_fast.build_serving_apply(model, torch.float32, "cpu")(torch.from_numpy(x)).numpy()

@@ -84,10 +84,9 @@ def test_eval_step_matches_jax_engine(weights, tmp_path, monkeypatch, fused):
     within 2e-3 and 0.05 dB."""
     variables, wdir = weights
     monkeypatch.setenv("MDIE_WEIGHTS_DIR", str(wdir))
-    # the JAX engine's served forward: per-block, f32 activations, whatever the port's file says
-    tuning = tmp_path / "serving_tuning_per_block.json"
-    tuning.write_text(json.dumps({"prefer_cm": False, "db_bf16_act": False,
-                                  "db_k_stack_max_ci": 56}))
+    # f32 activations, as the JAX engine's served forward, whatever the port's file says
+    tuning = tmp_path / "serving_tuning_f32_act.json"
+    tuning.write_text(json.dumps({"db_bf16_act": False}))
     monkeypatch.setenv("MDIE_SERVING_TUNING", str(tuning))
     rng = np.random.RandomState(3)
     targets = rng.rand(B, H, W, 3).astype(np.float32)

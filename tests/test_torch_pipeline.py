@@ -351,29 +351,25 @@ def test_load_expert_bank_builds_the_module_route(tmp_path, monkeypatch):
     assert (forwards[0].cm_calls, forwards[0].per_block_calls) == (0, 0)
 
 
-@pytest.mark.parametrize("prefer_cm", [True, False])
-def test_serving_expert_is_the_serving_forward(tmp_path, monkeypatch, prefer_cm):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_serving_expert_is_the_serving_forward(tmp_path, monkeypatch, dtype):
     """The card's expert, built here on the CPU through the bank's own
-    builder: bit for bit ``build_serving_apply`` in f32 and in bf16 on the
-    same serving tuning, and each call counted by the route it takes (32×48
-    is a CM size, 40×40 is not: W is no multiple of 16); with the tuning's
-    ``prefer_cm`` off every call is per block."""
+    builder: bit for bit ``build_serving_apply`` on the same serving tuning,
+    and each call counted by the route its shape takes (32×48 is a CM size,
+    40×40 is not: W is no multiple of 16)."""
     tuning = tmp_path / "tuning.json"
-    tuning.write_text(json.dumps({"prefer_cm": prefer_cm, "db_bf16_act": True,
-                                  "db_k_stack_max_ci": 56}))
+    tuning.write_text(json.dumps({"db_bf16_act": True, "db_k_stack_max_ci": 56}))
     monkeypatch.setenv("MDIE_SERVING_TUNING", str(tuning))
     model = write_tiny_pipeline(tmp_path)["experts"]["noise"]
     rng = np.random.RandomState(3)
     x_cm = torch.from_numpy(rng.rand(2, *HW, 3).astype(np.float32))
     x_pb = torch.from_numpy(rng.rand(1, 40, 40, 3).astype(np.float32))
-    for dtype in (torch.float32, torch.bfloat16):
-        expert = _serving_expert(model, dtype, "cpu")
-        want = build_serving_apply(model, dtype, "cpu")
-        for x in (x_cm, x_pb):
-            assert torch.equal(expert(x), want(x)), dtype
-        cm = int(prefer_cm)
-        assert (expert.cm_calls, expert.per_block_calls) == (cm, 2 - cm), dtype
-        assert expert.captures == 0  # nothing graphed on the CPU
+    expert = _serving_expert(model, dtype, "cpu")
+    want = build_serving_apply(model, dtype, "cpu")
+    for x in (x_cm, x_pb):
+        assert torch.equal(expert(x), want(x))
+    assert (expert.cm_calls, expert.per_block_calls) == (1, 1)
+    assert expert.captures == 0  # nothing graphed on the CPU
 
 
 def test_stream_restore_raises_a_decode_error(tmp_path, monkeypatch):

@@ -35,11 +35,10 @@ def _ancestors(event):
     return names
 
 
-def _serving_apply(prefer_cm):
+def _serving_apply():
     model = init_cdan(torch.Generator().manual_seed(0)).eval()
-    return build_serving_apply(model, torch.float32, "cpu", prefer_cm=prefer_cm,
-                               tuning={"prefer_cm": prefer_cm, "db_bf16_act": False,
-                                       "db_k_stack_max_ci": 0})
+    return build_serving_apply(model, torch.float32, "cpu",
+                               tuning={"db_bf16_act": False, "db_k_stack_max_ci": 0})
 
 
 def test_span_off_is_the_shared_noop_and_records_nothing(monkeypatch):
@@ -56,7 +55,7 @@ def test_span_off_is_the_shared_noop_and_records_nothing(monkeypatch):
     assert first is tracing.span("cdan/cbam") and first is tracing._OFF
     with first:
         pass
-    apply = _serving_apply(prefer_cm=True)
+    apply = _serving_apply()
     x = torch.rand(1, 16, 16, 3)
     apply(x)
     monkeypatch.setattr(tracing, "_profiler_enabled", lambda: False)
@@ -66,21 +65,21 @@ def test_span_off_is_the_shared_noop_and_records_nothing(monkeypatch):
     assert tracing.device_totals() == {} and tracing.dropped() == 0
 
 
-@pytest.mark.parametrize("prefer_cm", [False, True], ids=["per_block", "cm"])
-def test_serving_forward_spans_nest_under_the_forward(prefer_cm):
-    """Both built forwards: one ``serve/forward`` a call holding 3
-    upsamples (each around the fused upsample + add's entry), 4 CBAMs and
-    the kernel entry points, all host ops, no user annotation; no device
-    range on the CPU."""
-    apply = _serving_apply(prefer_cm)
-    x = torch.rand(1, 16, 16, 3)
+@pytest.mark.parametrize("hw", [(40, 40), (32, 48)], ids=["per_block", "cm"])
+def test_serving_forward_spans_nest_under_the_forward(hw):
+    """Both routes of the serving forward, each chosen by the image's shape:
+    one ``serve/forward`` a call holding 3 upsamples (each around the fused
+    upsample + add's entry), 4 CBAMs and the kernel entry points, all host
+    ops, no user annotation; no device range on the CPU."""
+    apply = _serving_apply()
+    x = torch.rand(1, *hw, 3)
     apply(x)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         apply(x)
     spans = _spans(prof)
     want = {"serve/forward": 1, "cdan/upsample": 3, "cdan/cbam": 4, "kernel/dense_block": 4,
             "kernel/bilinear_x2_add": 3}
-    if prefer_cm:
+    if hw == (32, 48):
         want.update({"kernel/conv3x3": 7, "kernel/conv3x3_pool": 1})
     assert {name: len(events) for name, events in spans.items()} == want
     for name, events in spans.items():

@@ -7,7 +7,6 @@ import json
 import math
 import re
 
-import pytest
 import torch
 
 from multi_degradation_image_enhancement_tpu_torch.benchmarks import tune_serving
@@ -15,12 +14,12 @@ from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
 from tests.torch_train_cli import ROOT
 
 PORT_DIR = ROOT / "multi_degradation_image_enhancement_tpu_torch"
-KEYS = ("prefer_cm", "db_bf16_act", "db_k_stack_max_ci")
+KEYS = tune_serving.KEYS
 ARGS = ["--device", "cpu", "--batch", "2", "--size", "32", "--iters", "1"]
 
 
-def _variant(r) -> tuple:
-    return r["prefer_cm"], r["cm_conv"], r["db_bf16_act"]
+def _variant(r) -> bool:
+    return r["db_bf16_act"]
 
 
 def test_writes_the_winner_and_every_variant(tmp_path):
@@ -35,12 +34,12 @@ def test_writes_the_winner_and_every_variant(tmp_path):
     best = min(results, key=lambda r: r["ms_per_step"])
     assert {k: cfg[k] for k in KEYS} == {k: best[k] for k in KEYS}
     assert prov["device"] == "cpu" and prov["batch"] == 2 and prov["size"] == 32
-    assert set(prov["cm_conv_ab"]) == {"bf16_act=0", "bf16_act=1"}
+    assert all(r["db_k_stack_max_ci"] == tune_serving.K_STACK for r in results)
 
 
 def test_keeps_keys_other_tuners_own(tmp_path):
     out = tmp_path / "tuning.json"
-    out.write_text(json.dumps({"prefer_cm": False, "fused_noise": True,
+    out.write_text(json.dumps({"db_bf16_act": False, "fused_noise": True,
                                "provenance": {"fused_noise": {"script": "another tuner"}}}))
     assert tune_serving.main(ARGS + ["--out", str(out)]) == 0
     cfg = json.loads(out.read_text())
@@ -74,7 +73,7 @@ def _patched_builder(monkeypatch, garbage):
 
 
 def test_a_garbage_variant_is_excluded(tmp_path, monkeypatch):
-    garbage_of = (True, "kernel", False)
+    garbage_of = True  # bf16 activations: not the baseline
     _patched_builder(monkeypatch, lambda v: (lambda out: out + 1.0)
                      if _variant(v) == garbage_of else None)
     out = tmp_path / "tuning.json"
@@ -84,14 +83,14 @@ def test_a_garbage_variant_is_excluded(tmp_path, monkeypatch):
     assert not bad["sane"] and bad["maxdiff_vs_baseline_variant"] >= 1.0 - 1e-6
     assert bad["ms_per_step"] == 1.0  # the fastest, and still not the winner
     cfg = json.loads(out.read_text())
-    assert (cfg["prefer_cm"], cfg["db_bf16_act"]) == (False, False)  # the first sane at 2 ms
+    assert cfg["db_bf16_act"] is False  # the first sane at 2 ms
     assert all(r["sane"] for r in results if r is not bad)
 
 
 def test_no_sane_variant_leaves_the_file_untouched(tmp_path, monkeypatch):
     _patched_builder(monkeypatch, lambda v: (lambda out: torch.full_like(out, math.nan)))
     out = tmp_path / "tuning.json"
-    out.write_text('{"prefer_cm": false}\n')
+    out.write_text('{"db_bf16_act": false}\n')
     before = out.read_bytes()
     assert tune_serving.main(ARGS + ["--out", str(out)]) == 1
     assert out.read_bytes() == before
@@ -123,25 +122,17 @@ def test_loader_reads_the_ports_file_never_the_jax_one(monkeypatch):
 def test_shipped_tuning_file_is_the_cards_or_says_not_measured():
     cfg = json.loads(cdan_fast._TUNING_PATH.read_text())
     assert set(cfg) == {*KEYS, "provenance"}
-    assert isinstance(cfg["prefer_cm"], bool) and isinstance(cfg["db_bf16_act"], bool)
+    assert isinstance(cfg["db_bf16_act"], bool)
     prov = cfg["provenance"]["forward_variants"]
     if isinstance(prov, str):
         assert prov == "not measured on a card"
-        assert {k: cfg[k] for k in KEYS} == {"prefer_cm": False, "db_bf16_act": False,
-                                             "db_k_stack_max_ci": 56}
+        assert {k: cfg[k] for k in KEYS} == {"db_bf16_act": False, "db_k_stack_max_ci": 56}
         return
     assert "NVIDIA" in prov["device"] and re.fullmatch(r"\d+(\.\d+)? W", prov["power_limit"])
     assert prov["script"] == tune_serving.SCRIPT and prov["dtype"] == "bfloat16"
     results = prov["results"]
-    assert [_variant(r) for r in results] == list(tune_serving.VARIANTS)
+    # the sweep that wrote the file held every variant the tuner now sweeps
+    assert set(tune_serving.VARIANTS) <= {_variant(r) for r in results}
     assert all(r["ms_per_step"] > 0 for r in results)
     best = min((r for r in results if r["sane"]), key=lambda r: r["ms_per_step"])
     assert {k: cfg[k] for k in KEYS} == {k: best[k] for k in KEYS}
-
-
-@pytest.mark.parametrize("impl", ["xla", "kernel"])
-def test_cm_conv_table_is_restored(impl):
-    before = dict(cdan_fast._CM_CONV_IMPL)
-    with cdan_fast.cm_conv_table(impl):
-        assert cdan_fast.cm_conv_choice() == impl
-    assert cdan_fast._CM_CONV_IMPL == before
