@@ -16,8 +16,9 @@ line per phase, and exits non-zero at the first failure:
    image, growth 12, f32 I/O and both NHWC entries (#3's and #10's);
 5. the bf16 serving forward with kernels vs the canonical f32 ``CDAN``;
 6. requests through ``serving.build_pipeline`` (B=128·256², then
-   B=16·256×384), with launch counters showing the noise, DenseBlock and
-   conv kernels ran (one #9 and seven #8 launches a step);
+   B=16·256×384), with launch counters showing the noise, DenseBlock,
+   conv and CBAM kernels ran (one #9, seven #8 launches and four fused CBAM
+   calls a step);
 7. times (CUDA events): ms/step, img/s, each kernel beside its plain version;
    each DenseBlock at B=128·256² also beside the module route (the unfused
    ``models.cdan.DenseBlock`` under a bf16 autocast) and the bytes floor of
@@ -46,7 +47,7 @@ line per phase, and exits non-zero at the first failure:
     its row-tiled kernel (#3), ``fused_dense_block_cm`` once, and the
     per-block forward at 2×480×640 vs the f32 ``CDAN``;
 15. serving steps at B=128·256² with launch counters (the served CM
-    forward: one #9 and seven #8 launches a step);
+    forward: one #9, seven #8 launches and four fused CBAM calls a step);
 16. ``run.main`` ``-p test`` on noise_synthetic.json's test block cut to 64
     images, scoring the checkpoint of phase 10: at 256×384 (the pinned
     tuning) and with the test images resized to 480×640 (the #3 route);
@@ -192,7 +193,15 @@ line per phase, and exits non-zero at the first failure:
     bit-equal to the vector path on misaligned copies; 3 launches a
     forward of both built forwards and no aten ``upsample_bilinear2d``
     kernel in a profiled CM forward; each call's ms (CUDA events) beside
-    its bytes bound, the plain version and aten's ``F.interpolate`` + add.
+    its bytes bound, the plain version and aten's ``F.interpolate`` + add;
+42. the fused CBAM with the decoder's product (``ops.cuda.cbam``) vs its
+    plain version at the served forward's four CBAMs of B=128·256² and of 4
+    rows of 256x384, bf16 (at most one bf16 step apart) and f32, with and
+    without d; odd shapes and misaligned copies (the scalar path, bit-equal
+    to the 16-byte path); a CUDA graph's replay bit-equal to the eager
+    call; 4 calls a CM forward and no aten CBAM or product op in its trace;
+    each call's ms (CUDA events) beside its byte bounds, the plain version
+    and the eager chain + product it replaced.
 
 Phases 1-37 run the served forward with f32 activations, whatever the port's
 tuning file chose on the card (``pin_forward``: a tuning file under
@@ -216,6 +225,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -531,13 +541,14 @@ def phase_requests(torch):
         require(bool(torch.isfinite(out).all()), "outputs finite")
         require(out.min().item() >= 0.0 and out.max().item() <= 1.0, "outputs in [0, 1]")
     want = {"noise_degrade": n_steps, "dense_block": 4 * LAUNCHES_PER_BLOCK * n_steps,
-            "conv3x3_pool": n_steps, "conv3x3": 7 * n_steps, "bilinear_x2_add": 3 * n_steps}
+            "conv3x3_pool": n_steps, "conv3x3": 7 * n_steps, "bilinear_x2_add": 3 * n_steps,
+            "cbam_cm": 4 * n_steps}
     say("requests", f"{BENCH_STEPS} steps B={BENCH_BATCH}x{BENCH_SIZE}^2 + {EVAL_STEPS} steps "
         f"B={EVAL_BATCH}x{EVAL_HW[0]}x{EVAL_HW[1]} bf16: finite, in [0,1]; launches {launches} "
         f"(expected {want})")
     require({k: launches[k] for k in want} == want,
             "per step one noise launch, 4 DenseBlocks x (entry + 4 growth + transition), "
-            "one #9, seven #8 and three upsample launches")
+            "one #9, seven #8, three upsample and four CBAM calls")
     return launches, step, bench_clean, eval_clean
 
 
@@ -1002,8 +1013,8 @@ def phase_tiled_shapes(torch, model):
 
 def phase_requests_cm(torch):
     """Serving steps at B=128·256² (the served CM forward): one conv+pool,
-    7 #8 and 24 DenseBlock launches a step.  Returns the launches and the
-    step."""
+    7 #8, 24 DenseBlock launches and 4 fused CBAM calls a step.  Returns the
+    launches and the step."""
     from multi_degradation_image_enhancement_tpu_torch import serving
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import (
         LAUNCHES_PER_BLOCK,
@@ -1022,7 +1033,7 @@ def phase_requests_cm(torch):
         require(bool(torch.isfinite(out).all()) and out.min().item() >= 0.0
                 and out.max().item() <= 1.0, "outputs finite, in [0, 1]")
     want = {"noise_degrade": BENCH_STEPS, "dense_block": 4 * LAUNCHES_PER_BLOCK * BENCH_STEPS,
-            "conv3x3_pool": BENCH_STEPS, "conv3x3": 7 * BENCH_STEPS}
+            "conv3x3_pool": BENCH_STEPS, "conv3x3": 7 * BENCH_STEPS, "cbam_cm": 4 * BENCH_STEPS}
     say("requests_cm", f"{BENCH_STEPS} steps B={BENCH_BATCH}x{BENCH_SIZE}^2: finite, in [0,1]; "
         f"launches {n} (expected {want})")
     require({k: n[k] for k in want} == want, "CM step launches")
@@ -1554,6 +1565,208 @@ def phase_upsample(torch, smi):
         f"{total:.4f} ms against their bound {bound_all:.4f} ms ({bound_all / total:.1%}; target "
         f"<= 0.45 ms), aten F.interpolate + add {sum(t[2] for t in times.values()):.3f} ms")
     return {"launches": bilinear_x2_add.launches, "max_ulp_gap": worst, "ms": total,
+            "plain_ms": sum(t[1] for t in times.values()),
+            "library_ms": sum(t[2] for t in times.values())}
+
+
+# (layer, (batch, c, H, W), the decoder's product after it) of the served
+# forward's four CBAMs at B=128·256², and at 4 rows of 256x384 (an expert of
+# the routed pipeline).
+CBAMS = [("bottleneck", (BENCH_BATCH, 512, 32, 32), False),
+         ("cbam1", (BENCH_BATCH, 256, 32, 32), True),
+         ("cbam2", (BENCH_BATCH, 128, 64, 64), True),
+         ("cbam3", (BENCH_BATCH, 64, 128, 128), True)]
+CBAMS_ROUTED = [(name, (4, c, h, w * 3 // 2), with_d) for name, (_, c, h, w), with_d in CBAMS]
+# names a CM forward's device ops may not hold once CBAM and its product are
+# fused: aten's pools over H×W and C, the broadcast products, cuDNN's 7×7 conv
+# and the compress map's cat
+EAGER_CBAM_OPS = ("reduce_kernel", "MulFunctor", "convolve", "cudnn", "CatArrayBatchedCopy")
+CBAM_KERNELS = ("cbam_pool_kernel", "cbam_gate_kernel", "cbam_compress_kernel", "cbam_apply_kernel")
+
+
+def cbam_kernel(key: str):
+    """The fused CBAM's kernel a profiler key names, or None."""
+    m = re.search(r"cbam_[a-z]+_kernel", key)
+    return m.group(0) if m and m.group(0) in CBAM_KERNELS else None
+
+
+def cbam_work(shapes, io_bytes=2):
+    """FLOPs and bytes of ``cbam_cm`` calls, ``shapes`` (batch, c, H, W, with
+    d): about 12 FLOPs an element (sum and max, the gated max and sum, the
+    products) and 2 * 98 + 2 a pixel (the 7x7 conv, the sigmoid).  Bytes
+    two ways: each byte once (x and d read, y written: the roofline's
+    count), and the design's (x read by each of its three passes)."""
+    flops = once = design = 0
+    for b, c, h, w, with_d in shapes:
+        n = b * c * h * w
+        flops += 12 * n + 198 * b * h * w
+        once += (2 + with_d) * n * io_bytes
+        design += (4 + with_d) * n * io_bytes
+    return flops, once, design
+
+
+def eager_cbam(torch, x, pack, d=None):
+    """The served forward's CBAM before the fused kernel: the eager chain on
+    weights in x's dtype, rounding after each op, then the product by d."""
+    import torch.nn.functional as F
+
+    p = {k: v.to(x.dtype) for k, v in pack.items()}
+
+    def mlp(v):
+        return F.linear(torch.relu(F.linear(v, p["w1"], p["b1"])), p["w2"], p["b2"])
+
+    x = x * torch.sigmoid(mlp(x.mean(dim=(2, 3))) + mlp(x.amax(dim=(2, 3))))[:, :, None, None]
+    comp = torch.cat([x.amax(dim=1, keepdim=True), x.mean(dim=1, keepdim=True)], dim=1)
+    y = x * torch.sigmoid(F.conv2d(comp, p["k7"], p["bsp"], padding=3))
+    return y if d is None else y * d
+
+
+def phase_cbam(torch, smi):
+    """Phase 42: the fused CBAM with the decoder's product (``ops.cuda.cbam``)
+    against its plain version at the served forward's four CBAMs of
+    B=128·256² and of 4 rows of 256x384, in bf16 (within one bf16 step) and
+    f32, with and without d; odd shapes and misaligned copies through the
+    scalar path, bit-equal to the 16-byte path; two calls bit-equal, and a
+    CUDA graph's replay bit-equal to the eager call; 4 calls a served CM
+    forward and none of aten's CBAM ops in its trace; each B=128 call's ms
+    (CUDA events) beside its byte bounds, the plain version and the eager
+    chain it replaced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multi_degradation_image_enhancement_tpu_torch.models import cdan_fast
+    from multi_degradation_image_enhancement_tpu_torch.models.cbam import CBAM
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.cbam import (
+        cbam_cm,
+        cbam_cm_plain,
+        cbam_plan,
+        vector_path,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(42)
+    cbam_cm.launches = 0
+    torch.manual_seed(42)
+    packs = {}
+    for name, (_, c, _, _), _ in CBAMS:
+        mod = CBAM(c).eval()
+        bn = mod.SpatialGate.spatial.bn
+        with torch.no_grad():
+            bn.running_mean.uniform_(-0.3, 0.3)
+            bn.running_var.uniform_(0.2, 0.8)
+            bn.weight.uniform_(0.5, 1.5)
+            bn.bias.uniform_(-0.5, 0.5)
+        packs[name] = cdan_fast.pack_cbam_cm(mod, dev)
+
+    def inputs(shape, dtype):
+        x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        return x, (torch.rand(shape, device=dev, generator=gen) * 2).to(dtype)
+
+    def misaligned(t):  # the same values 2 bytes past a 16-byte boundary
+        flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+        view = flat[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def compare(label, got, want):
+        if got.dtype == torch.bfloat16:
+            gap = int(bf16_ulp_gap(torch, got, want).max().item())
+            require(gap <= 1, f"{label}: kernel within one bf16 step of plain, got {gap}")
+            return gap
+        err = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+        require(err <= 1e-5, f"{label}: f32 gap {err:.2e} of the largest value (limit 1e-5)")
+        return 0
+
+    worst = 0
+    for rows, table in (("B=128x256^2", CBAMS), ("4 rows of 256x384", CBAMS_ROUTED)):
+        for name, shape, _ in table:
+            for dtype in (torch.bfloat16, torch.float32):
+                x, d = inputs(shape, dtype)
+                for dd in (None, d):
+                    y = cbam_cm(x, packs[name], dd)
+                    require(vector_path(x, y, dd), f"{name} {rows}: the 16-byte path")
+                    worst = max(worst, compare(f"{name} {rows} {dtype} d={dd is not None}", y,
+                                               cbam_cm_plain(x, packs[name], dd)))
+                del x, d, y
+        say("cbam", f"{rows}: the four CBAMs in bf16 and f32, with and without d, vs plain: ok "
+            f"(plans {[tuple(cbam_plan(*s)) for _, s, _ in table]})")
+    for shape in ((2, 16, 5, 7), (1, 32, 1, 1), (3, 64, 33, 47), (2, 128, 6, 10)):
+        pack = cdan_fast.pack_cbam_cm(CBAM(shape[1]).eval(), dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, d = inputs(shape, dtype)
+            worst = max(worst, compare(f"{shape} {dtype}", cbam_cm(x, pack, d),
+                                       cbam_cm_plain(x, pack, d)))
+    x, d = inputs((8, 128, 64, 64), torch.bfloat16)
+    xs, ds = misaligned(x), misaligned(d)
+    ys = cbam_cm(xs, packs["cbam2"], ds)
+    require(not vector_path(xs, ys, ds), "misaligned copies take the scalar path")
+    y = cbam_cm(x, packs["cbam2"], d)
+    require(torch.equal(ys, y), "the scalar path bit-equal to the 16-byte path")
+    require(torch.equal(cbam_cm(x, packs["cbam2"], d), y), "two calls bit-equal")
+    say("cbam", "odd shapes (5x7, 1x1, 33x47, W % 8 != 0) and f32 vs plain; misaligned copies "
+        "through the scalar path bit-equal; two calls bit-equal: ok")
+
+    static_x, static_d = x.clone(), d.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cbam_cm(static_x, packs["cbam2"], static_d)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_y = cbam_cm(static_x, packs["cbam2"], static_d)
+    x2, d2 = inputs(tuple(x.shape), torch.bfloat16)
+    static_x.copy_(x2)
+    static_d.copy_(d2)
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(static_y, cbam_cm(x2, packs["cbam2"], d2)),
+            "the CUDA graph's replay bit-equal to the eager call")
+    say("cbam", "captured in a CUDA graph; the replay on new inputs bit-equal to the eager call")
+    del x, d, xs, ds, y, ys, static_x, static_d, static_y, x2, d2, graph
+
+    model = live_cdan(torch, 42).to(dev)
+    xi = torch.rand((2, BENCH_SIZE, BENCH_SIZE, 3), device=dev, generator=gen)
+    fwd = cdan_fast.build_fast_apply_cm(model, torch.bfloat16, dev)
+    fwd(xi)
+    n0 = cbam_cm.launches
+    fwd(xi)
+    torch.cuda.synchronize()
+    per_forward = cbam_cm.launches - n0
+    require(per_forward == 4, f"the CM forward: 4 cbam_cm calls, got {per_forward}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fwd(xi)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    ours = {cbam_kernel(k) for k in names} - {None}
+    eager = [k for k in names if any(op in k for op in EAGER_CBAM_OPS)]
+    require(ours == set(CBAM_KERNELS) and not eager, f"the CM forward's kernels: the four CBAM "
+            f"launches ({ours}), no eager CBAM or product op ({eager})")
+    say("cbam", f"4 calls a CM forward; its device ops name the CBAM kernels {sorted(ours)} and "
+        f"none of {EAGER_CBAM_OPS}: {sorted(k[:60] for k in names)}")
+
+    times = {}
+    for name, shape, with_d in CBAMS:
+        x, d = inputs(shape, torch.bfloat16)
+        d = d if with_d else None
+        pack = packs[name]
+        ms = cuda_ms(lambda: cbam_cm(x, pack, d), 20)
+        plain_ms = cuda_ms(lambda: cbam_cm_plain(x, pack, d), 3)
+        lib_ms = cuda_ms(lambda: eager_cbam(torch, x, pack, d), 10)
+        once_ms, design_ms = (v / HBM_BYTES_PER_S * 1e3 for v in cbam_work([(*shape, with_d)])[1:])
+        times[name] = (ms, plain_ms, lib_ms)
+        say("cbam", f"[{smi}] {name} x{list(shape)} bf16{' * d' if with_d else ''}: kernel "
+            f"{ms:.4f} ms, bounds {once_ms:.4f} ms (each byte once; {once_ms / ms:.1%}) / "
+            f"{design_ms:.4f} ms (x read three times; {design_ms / ms:.1%}), plain "
+            f"{plain_ms:.3f} ms, eager chain {lib_ms:.3f} ms; plan {tuple(cbam_plan(*shape))}")
+        del x, d
+    total = sum(t[0] for t in times.values())
+    once_ms, design_ms = (v / HBM_BYTES_PER_S * 1e3
+                          for v in cbam_work([(*s, wd) for _, s, wd in CBAMS])[1:])
+    say("cbam", f"[{smi}] the four calls of a B={BENCH_BATCH} batch {total:.4f} ms against "
+        f"{once_ms:.4f} ms (each byte once) and {design_ms:.4f} ms (x thrice; "
+        f"{design_ms / total:.1%}), eager chain + product "
+        f"{sum(t[2] for t in times.values()):.3f} ms")
+    return {"launches": cbam_cm.launches, "max_ulp_gap": worst, "ms": total,
             "plain_ms": sum(t[1] for t in times.values()),
             "library_ms": sum(t[2] for t in times.values())}
 
@@ -3500,9 +3713,11 @@ def _serving_counts(reset: bool = False) -> dict:
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dense_block import dense_block
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.noise import noise_degrade_01
     from multi_degradation_image_enhancement_tpu_torch.ops.cuda.upsample import bilinear_x2_add
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.cbam import cbam_cm
 
     fns = {"noise_degrade": noise_degrade_01, "dense_block": dense_block,
-           "conv3x3_pool": conv3x3_pool, "conv3x3": conv3x3, "bilinear_x2_add": bilinear_x2_add}
+           "conv3x3_pool": conv3x3_pool, "conv3x3": conv3x3, "bilinear_x2_add": bilinear_x2_add,
+           "cbam_cm": cbam_cm}
     if reset:
         for fn in fns.values():
             fn.launches = 0
@@ -3553,7 +3768,7 @@ def phase_tune_serving(torch, smi, live, ckpt_dir: Path, shipped):
     want = {"noise_degrade": n * per_variant, "dense_block": 4 * LAUNCHES_PER_BLOCK * n * per_variant,
             "conv3x3_pool": n * per_variant, "conv3x3": 7 * n * per_variant,
             "dense_block_bf16_act": 17 * per_variant * sum(r["db_bf16_act"] for r in results),
-            "bilinear_x2_add": 3 * n * per_variant}
+            "bilinear_x2_add": 3 * n * per_variant, "cbam_cm": 4 * n * per_variant}
     say("tune_serving", f"launches {launches} (expected {want}); winner "
         f"{tune_serving.label(best) if best else None} "
         f"({best['ms_per_step']:.3f} ms/step); shipped file: {shipped_variant}, tuned on "
@@ -3736,6 +3951,7 @@ def main() -> int:
     phase_bench(torch, smi, times, cm_ms)
     train_tp = phase_train_throughput(torch, smi, noise_train_ms)
     up = phase_upsample(torch, smi)
+    cb = phase_cbam(torch, smi)
 
     src = f"{PKG}/csrc"
     ref = "multi_degradation_image_enhancement_tpu/ops/pallas"
@@ -3753,6 +3969,7 @@ def main() -> int:
         "fused_dense_block": (*dense_block_work(eval_blocks), "bf16"),
         **probe_work(),
         "bilinear_x2_add": (*upsample_work([shape for _, shape in UPSAMPLES]), "f32"),
+        "cbam_cm": (*cbam_work([(*shape, with_d) for _, shape, with_d in CBAMS])[:2], "f32"),
     }
     work["dense_block_bf16_act"] = work["dense_block"]  # the same four blocks, bf16 activations
     kernels = [
@@ -3802,6 +4019,10 @@ def main() -> int:
                     "replaces": None,  # port-only: XLA fuses the JAX decoder's resize + add
                     "launches": up["launches"], "max_ulp_gap": up["max_ulp_gap"], "ms": up["ms"],
                     "plain_ms": up["plain_ms"], "library_ms": up["library_ms"]})
+    kernels.append({"name": "cbam_cm", "route": "cuda", "source": f"{src}/cbam.cu",
+                    "replaces": None,  # port-only: XLA fuses the JAX forward's CBAM + product
+                    "launches": cb["launches"], "max_ulp_gap": cb["max_ulp_gap"], "ms": cb["ms"],
+                    "plain_ms": cb["plain_ms"], "library_ms": cb["library_ms"]})
     for name, source, replaces in (
             ("probe_matmul_bf16", "probe_matmul.cu", "benchmarks/exp_int8_reprobe.py:39"),
             ("probe_matmul_int8", "probe_matmul.cu", "benchmarks/exp_int8_reprobe.py:39"),
@@ -3816,7 +4037,7 @@ def main() -> int:
     # this slice's entry points (phases 38 and 40), the counts reset just before each
     entry = {**{k: tuned["launches"][k] for k in ("noise_degrade", "dense_block", "conv3x3_pool",
                                                  "conv3x3", "dense_block_bf16_act",
-                                                 "bilinear_x2_add")},
+                                                 "bilinear_x2_add", "cbam_cm")},
              **train_tp["launches"]}
     for k in kernels:
         if k["name"] in entry:

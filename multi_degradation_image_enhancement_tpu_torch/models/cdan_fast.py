@@ -18,8 +18,10 @@ folded convs as ``F.conv2d`` (XLA's convs in the JAX package), conv1's pool
 as ``F.max_pool2d`` and CBAM as the plain modules.
 :func:`build_fast_apply_cm` runs conv1 + BN + ReLU + 2×2 pool as one kernel
 (``ops.cuda.conv_cm.conv3x3_pool``, TPU kernel #9), every other conv as the
-conv kernel (``conv3x3``, #8), and CBAM with its spatial BatchNorm folded
-(:func:`_cbam_cm`).  The port's channel-major layout is plain NCHW, so both
+conv kernel (``conv3x3``, #8), and each CBAM with its spatial BatchNorm
+folded, together with the decoder's product by d3 / d2 / d1 after it, as one
+call of the fused CBAM kernel (``ops.cuda.cbam.cbam_cm``, :func:`_cbam_cm`).
+The port's channel-major layout is plain NCHW, so both
 keep NCHW inside.  The JAX package's third DenseBlock route, the row-tiled
 ``_run_cm`` (#3) for images whose whole-image kernel does not fit VMEM, has
 no branch here: the CUDA DenseBlock covers whole images at every size.
@@ -39,7 +41,8 @@ that requires grad (training goes through ``models.cdan.CDAN``).
 
 Spans (``utils.tracing``, recorded only under a profiler): each call of a
 built forward is ``serve/forward``, each bilinear ×2 with its add
-``cdan/upsample`` and each CBAM ``cdan/cbam``, device ranges on the card.
+``cdan/upsample`` and each CBAM ``cdan/cbam`` (in the CM forward with the
+decoder's product after it), device ranges on the card.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.cbam import cbam_cm
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
     conv3x3,
     conv3x3_pool,
@@ -195,34 +199,31 @@ def build_fast_apply(
 _CM_CONVS = ("conv2", "conv3", "conv4", "de1", "de2", "de3", "de4")
 
 
-def pack_cbam_cm(cbam, device=None, dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """One CBAM's weights for :func:`_cbam_cm`: the channel gate's MLP, and
-    the spatial gate's 7×7 conv (no bias) with its inference BatchNorm folded
-    into the kernel and one scalar bias (``cdan_fast.py:105-124``)."""
+def pack_cbam_cm(cbam, device=None) -> Dict[str, torch.Tensor]:
+    """One CBAM's f32 weights for :func:`_cbam_cm`: the channel gate's MLP,
+    and the spatial gate's 7×7 conv (no bias) with its inference BatchNorm
+    folded into the kernel and one scalar bias (``cdan_fast.py:105-124``)."""
     fc1, fc2 = cbam.ChannelGate.mlp[1], cbam.ChannelGate.mlp[3]
     sp = cbam.SpatialGate.spatial
     a, b = fold_bn(sp.bn.weight, sp.bn.bias, sp.bn.running_mean, sp.bn.running_var, sp.bn.eps)
 
     def cast(t):
-        return t.detach().to(device=device, dtype=dtype).contiguous()
+        return t.detach().to(device=device, dtype=torch.float32).contiguous()
 
     return {"w1": cast(fc1.weight), "b1": cast(fc1.bias), "w2": cast(fc2.weight),
             "b2": cast(fc2.bias), "k7": cast(sp.conv.weight * a[:, None, None, None]),
             "bsp": cast(b)}
 
 
-def _cbam_cm(x: torch.Tensor, pack: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """CBAM (inference) on NCHW ``x`` from :func:`pack_cbam_cm`: the channel
-    gate on the avg- and max-pooled vectors, then the spatial gate on the
-    ``[max, mean]`` compress map (``cdan_fast.py:127-159``)."""
-
-    def mlp(v):
-        return F.linear(torch.relu(F.linear(v, pack["w1"], pack["b1"])), pack["w2"], pack["b2"])
-
+def _cbam_cm(x: torch.Tensor, pack: Dict[str, torch.Tensor],
+             d: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CBAM (inference) on NCHW ``x`` from :func:`pack_cbam_cm`, times the
+    decoder's ``d`` where given: the channel gate on the avg- and max-pooled
+    vectors, then the spatial gate on the ``[max, mean]`` compress map
+    (``cdan_fast.py:127-159``), then the product (``:353-367``), as one call
+    of the fused kernel (``ops.cuda.cbam``), rounded once."""
     with span("cdan/cbam", device=x.device):
-        x = x * torch.sigmoid(mlp(x.mean(dim=(2, 3))) + mlp(x.amax(dim=(2, 3))))[:, :, None, None]
-        comp = torch.cat([x.amax(dim=1, keepdim=True), x.mean(dim=1, keepdim=True)], dim=1)
-        return x * torch.sigmoid(F.conv2d(comp, pack["k7"], pack["bsp"], padding=3))
+        return cbam_cm(x, pack, d)
 
 
 def _maxpool2x2_cm(x: torch.Tensor) -> torch.Tensor:
@@ -255,7 +256,7 @@ def build_fast_apply_cm(
     convs = {name: pack_conv(*folded[name], device=device) for name in _CM_CONVS}
     packs = _pack_dense_blocks(model, device, bf16_act, k_stack_max_ci)
     dec = model.decoder
-    cbams = {name: pack_cbam_cm(mod, device, dtype)
+    cbams = {name: pack_cbam_cm(mod, device)
              for name, mod in (("bottleneck", model.bottleneck), ("cbam1", dec.cbam1),
                                ("cbam2", dec.cbam2), ("cbam3", dec.cbam3))}
     frozen = [conv1.w_bf16, conv1.bias]
@@ -281,12 +282,9 @@ def build_fast_apply_cm(
         skip2 = out
         out = _cbam_cm(conv3x3(out, convs["conv4"]), cbams["bottleneck"])
 
-        out = _cbam_cm(conv3x3(out, convs["de1"]) + skip2, cbams["cbam1"])
-        out = out * d3
-        out = _cbam_cm(_upsample_x2_add(conv3x3(out, convs["de2"]), skip1), cbams["cbam2"])
-        out = out * d2
-        out = _cbam_cm(_upsample_x2_add(conv3x3(out, convs["de3"]), skip0), cbams["cbam3"])
-        out = out * d1
+        out = _cbam_cm(conv3x3(out, convs["de1"]) + skip2, cbams["cbam1"], d3)
+        out = _cbam_cm(_upsample_x2_add(conv3x3(out, convs["de2"]), skip1), cbams["cbam2"], d2)
+        out = _cbam_cm(_upsample_x2_add(conv3x3(out, convs["de3"]), skip0), cbams["cbam3"], d1)
         # de4 has 3 outputs; the TPU kernel pads them to 16 and slices back
         # (:368), the CUDA kernel writes 3.  de4 keeps its ReLU.
         out = _upsample_x2_add(conv3x3(out, convs["de4"]), x)  # global residual

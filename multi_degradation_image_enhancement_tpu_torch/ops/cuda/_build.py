@@ -149,6 +149,8 @@ def _declare(lib, ctypes) -> None:
         "mdie_probe_lhsT": [p, p, i, i, p, p],
         # upsample.cu
         "mdie_bilinear_x2_add": [p, p, p, i, i, i64, i, i, p],
+        # cbam.cu
+        "mdie_cbam_cm": [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
     }
     restypes = {"mdie_growth_bwd_scratch": i64}
     for name, argtypes in signatures.items():

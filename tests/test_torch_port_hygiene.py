@@ -18,8 +18,12 @@ import torch
 from multi_degradation_image_enhancement_tpu_torch import run_pipeline, serving
 from multi_degradation_image_enhancement_tpu_torch.benchmarks import exp_int8_reprobe
 from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
-from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_fast_apply
+from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import (
+    build_fast_apply,
+    pack_cbam_cm,
+)
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda import _build
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.cbam import cbam_cm
 from multi_degradation_image_enhancement_tpu_torch.ops.cuda.conv_cm import (
     conv3x3,
     conv3x3_pool,
@@ -182,7 +186,7 @@ def _launches():
     return (noise_degrade_01.launches, dense_block.launches, growth_layer_fwd.launches,
             growth_layer_bwd.launches, conv3x3.launches, conv3x3_pool.launches,
             probe_matmul.launches, m_dot_xt.launches, xt_dot_m.launches, transpose.launches,
-            bilinear_x2_add.launches)
+            bilinear_x2_add.launches, cbam_cm.launches)
 
 
 def test_plain_path_counts_no_launch():
@@ -208,6 +212,8 @@ def test_plain_path_counts_no_launch():
     assert torch.equal(xt_dot_m(m_dot_xt(x, eye), eye), x)
     assert transpose(x).shape == (1, 64, 8)
     assert bilinear_x2_add(out, torch.rand(1, 64, 8, 8)).shape == (1, 64, 8, 8)
+    pack = pack_cbam_cm(CDAN().decoder.cbam3.eval())
+    assert cbam_cm(out, pack, out).shape == (1, 64, 4, 4)
     assert _launches() == n0
 
 

@@ -69,8 +69,9 @@ def test_span_off_is_the_shared_noop_and_records_nothing(monkeypatch):
 def test_serving_forward_spans_nest_under_the_forward(hw):
     """Both routes of the serving forward, each chosen by the image's shape:
     one ``serve/forward`` a call holding 3 upsamples (each around the fused
-    upsample + add's entry), 4 CBAMs and the kernel entry points, all host
-    ops, no user annotation; no device range on the CPU."""
+    upsample + add's entry), 4 CBAMs (on the CM route each around the fused
+    CBAM's entry) and the kernel entry points, all host ops, no user
+    annotation; no device range on the CPU."""
     apply = _serving_apply()
     x = torch.rand(1, *hw, 3)
     apply(x)
@@ -80,7 +81,7 @@ def test_serving_forward_spans_nest_under_the_forward(hw):
     want = {"serve/forward": 1, "cdan/upsample": 3, "cdan/cbam": 4, "kernel/dense_block": 4,
             "kernel/bilinear_x2_add": 3}
     if hw == (32, 48):
-        want.update({"kernel/conv3x3": 7, "kernel/conv3x3_pool": 1})
+        want.update({"kernel/conv3x3": 7, "kernel/conv3x3_pool": 1, "kernel/cbam": 4})
     assert {name: len(events) for name, events in spans.items()} == want
     for name, events in spans.items():
         for e in events:
@@ -89,6 +90,8 @@ def test_serving_forward_spans_nest_under_the_forward(hw):
                 assert "serve/forward" in _ancestors(e), name
             if name == "kernel/bilinear_x2_add":
                 assert "cdan/upsample" in _ancestors(e)
+            if name == "kernel/cbam":
+                assert "cdan/cbam" in _ancestors(e)
     assert tracing.device_totals() == {}
 
 
