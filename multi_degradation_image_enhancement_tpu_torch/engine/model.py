@@ -27,7 +27,8 @@ logger=…)``) and config keys as the JAX engine.  Train phase:
   Default: bf16 on CUDA, fp32 on the CPU;
 * ``train.fused_dense``: DenseBlocks through the growth-layer kernel;
 * ``train.remat``: every ConvBlock, DenseBlock and CBAM rematerialised in the
-  backward (``models.cdan``);
+  backward (``models.cdan``); both are a CDAN's, and either set on another
+  network stops the build;
 * ``logging.profiler`` ``{enabled, trace_epochs}``: each listed epoch
   (1-based) under ``torch.profiler`` (CPU, and CUDA on the card), its Chrome
   trace written to ``<run_dir>/profile/`` (``model.py:287-291,551-556``)
@@ -40,8 +41,9 @@ logger=…)``) and config keys as the JAX engine.  Train phase:
 * the logger's epoch rows keep the JAX schema.
 
 Test phase (``model.py:464-534,756-928``): a strict load of
-``test.model_path/model_name``; the fused forward of
-``models.cdan_fast.build_serving_apply`` (``test.fused_kernels`` /
+``test.model_path/model_name``; the network's served forward, a CDAN's
+``models.cdan_fast.build_serving_apply`` or a Restormer's
+``models.restormer.serving_forward`` (``test.fused_kernels`` /
 ``model.fused_kernels``: ``"auto"`` takes it on CUDA and the module on the
 CPU, ``true`` forces it, ``false`` takes the module) in the precision of
 ``train.precision``; per batch the loss and metrics pipelines with
@@ -97,6 +99,7 @@ from multi_degradation_image_enhancement_tpu_torch.engine import checkpoint as c
 from multi_degradation_image_enhancement_tpu_torch.engine.state import TrainState, build_schedule
 from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN, eval_forward
 from multi_degradation_image_enhancement_tpu_torch.models.cdan_fast import build_serving_apply
+from multi_degradation_image_enhancement_tpu_torch.models.restormer import Restormer, serving_forward
 from multi_degradation_image_enhancement_tpu_torch.models.torch_init import (
     flax_default_init_,
     torch_reinit_,
@@ -229,8 +232,14 @@ class Model:
                 print("[ENGINE] torch-default re-initialization applied")
             else:
                 flax_default_init_(network, init_gen)
-            network.fused_dense = bool(train_cfg.get("fused_dense"))
-            network.remat = bool(train_cfg.get("remat"))
+            if isinstance(network, CDAN):
+                network.fused_dense = bool(train_cfg.get("fused_dense"))
+                network.remat = bool(train_cfg.get("remat"))
+            else:
+                cdan_only = [k for k in ("fused_dense", "remat") if train_cfg.get(k)]
+                if cdan_only:
+                    raise ValueError(f"train.{' and train.'.join(cdan_only)} name CDAN modules; "
+                                     f"the network is a {type(network).__name__}")
             sched_cfg = train_cfg.get("lr_schedule")
             schedule = build_schedule(sched_cfg, self.lr, self.epoch * max(len(dataloader), 1)
                                       ) if sched_cfg else None
@@ -459,25 +468,30 @@ class Model:
         return ckpt.load_weights(self.checkpoint_path(), self._eval_network).to(self.device).eval()
 
     def _fused_eval_forward(self, model: torch.nn.Module):
-        """The fused forward (``build_serving_apply``), or None for the module.
+        """The network's served forward (a CDAN's ``build_serving_apply``, a
+        Restormer's ``serving_forward``), or None for the module.
 
         ``test.fused_kernels`` or else ``model.fused_kernels``: ``false`` →
-        the module; ``"auto"`` (the default) → the fused forward on CUDA and
+        the module; ``"auto"`` (the default) → the served forward on CUDA and
         the module on the CPU; anything else, ``true`` included, forces the
-        fused forward (the kernels' plain versions on the CPU).  A network
-        that is not a CDAN keeps the module unless ``true`` asks for more."""
+        served forward (the kernels' plain versions on the CPU).  A network
+        with no served forward keeps the module unless ``true`` asks for
+        more."""
         flag = (self.config.get("test", {}) or {}).get("fused_kernels")
         if flag is None:
             flag = (self.config.get("model", {}) or {}).get("fused_kernels", "auto")
         if flag is False or (flag == "auto" and self.device.type == "cpu"):
             return None
-        if not isinstance(model, CDAN):
-            if flag is True:
-                raise RuntimeError(f"fused_kernels=true but the network is a "
-                                   f"{type(model).__name__}, not a CDAN")
-            return None
         dtype = torch.bfloat16 if self.precision == "bf16" else torch.float32
-        return build_serving_apply(model, dtype, self.device)
+        if isinstance(model, CDAN):
+            return build_serving_apply(model, dtype, self.device)
+        if isinstance(model, Restormer):
+            return serving_forward(model, dtype, self.device)
+        if flag is True:
+            raise RuntimeError(f"fused_kernels=true but the network is a "
+                               f"{type(model).__name__}, which has no served forward "
+                               f"(a CDAN and a Restormer have one)")
+        return None
 
     def _build_eval_step(self, model: torch.nn.Module):
         """``step(inputs, targets=None, mask=None) -> {"raw", "post",
@@ -488,7 +502,7 @@ class Model:
         scalars)."""
         forward = self._fused_eval_forward(model)
         if forward is not None:
-            print("[ENGINE] fused inference kernels active (CUDA DenseBlocks)")
+            print(f"[ENGINE] served forward active ({type(model).__name__})")
         else:
             forward = eval_forward(model, torch.bfloat16 if self.precision == "bf16"
                                    else torch.float32)

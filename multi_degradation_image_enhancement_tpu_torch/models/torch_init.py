@@ -8,9 +8,11 @@ unless ``train.torch_init`` is set: every ``Conv2d``, ``ConvTranspose2d`` and
 "truncated_normal")``: truncated at ±2σ with σ = √(1/fan_in) / 0.8796…, so
 the drawn values have variance 1/fan_in), biases 0, BatchNorm scale 1,
 bias 0 and running statistics 0/1.  fan_in is the JAX kernel's: kh·kw·c_in
-for a conv, ``in_features`` for a linear; the decoder's ``ConvTranspose2d``
-layers run in the JAX package as flipped convs reading ``in_channels``
-(``models/cdan.py:312-338``), so their fan_in is 9·``in_channels``.
+for a conv (c_in per group, ``in_channels / groups``, as Flax's grouped
+kernel holds it: a depthwise 3×3 conv's fan_in is 9), ``in_features`` for a
+linear; the decoder's ``ConvTranspose2d`` layers run in the JAX package as
+flipped convs reading ``in_channels`` (``models/cdan.py:312-338``), so their
+fan_in is 9·``in_channels``.
 
 :func:`torch_reinit_` (``train.torch_init: true``) is PyTorch's own
 ``reset_parameters`` of each conv and linear, the statistics the JAX
@@ -41,7 +43,7 @@ def flax_lecun_std(layer: nn.Module) -> float:
     if isinstance(layer, nn.Linear):
         fan_in = layer.in_features
     else:
-        fan_in = layer.kernel_size[0] * layer.kernel_size[1] * layer.in_channels
+        fan_in = layer.kernel_size[0] * layer.kernel_size[1] * layer.in_channels // layer.groups
     return math.sqrt(1.0 / fan_in) / TRUNCATED_STD
 
 

@@ -4,8 +4,9 @@ of ``multi_degradation_image_enhancement_tpu/utils/registry.py``).
 The shipped configs name the reference's modules (``["models.cdan",
 "CDAN"]``); each name that the train and test phases of the shipped
 configs use (synthetic and directory-backed) maps to the port's class, in
-the short and in the long form.  Any other name raises and names
-ROADMAP.md.  Every error raised while an object is built reaches the caller
+the short and in the long form, as does the port's second network,
+``["models.restormer", "Restormer"]`` (``config/restormer_noise_synthetic.json``).
+Any other name raises and names ROADMAP.md.  Every error raised while an object is built reaches the caller
 as the JAX registry's ``NotImplementedError("<init_type> [<Class>() from
 <module>] not recognized: <error>")``, chained to it (``utils/registry.py:
 80-99``).
@@ -21,6 +22,11 @@ _PKG = "multi_degradation_image_enhancement_tpu_torch"
 def _cdan():
     from multi_degradation_image_enhancement_tpu_torch.models.cdan import CDAN
     return CDAN
+
+
+def _restormer():
+    from multi_degradation_image_enhancement_tpu_torch.models.restormer import Restormer
+    return Restormer
 
 
 def _model():
@@ -46,6 +52,8 @@ def _synthetic():
 _REGISTRY: Dict[Tuple[str, str], Callable[[], Any]] = {
     ("models.cdan", "CDAN"): _cdan,
     (f"{_PKG}.models.cdan", "CDAN"): _cdan,
+    ("models.restormer", "Restormer"): _restormer,
+    (f"{_PKG}.models.restormer", "Restormer"): _restormer,
     ("models.model", "Model"): _model,
     (f"{_PKG}.engine.model", "Model"): _model,
     ("data.synthetic", "SyntheticPairedDataset"): _synthetic,

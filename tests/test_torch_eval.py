@@ -125,14 +125,15 @@ def test_eval_step_matches_jax_engine(weights, tmp_path, monkeypatch, fused):
 def test_fused_flag_routes_eval(tmp_path):
     """``test.fused_kernels``: absent/"auto" → the module on the CPU; true →
     the fused forward (plain kernels on the CPU); false → the module; a
-    network that is not a CDAN with true raises (model.py:464-492).  With
+    network with no served forward (neither a CDAN nor a Restormer) with
+    true raises (model.py:464-492).  With
     ``post_processing.enabled`` the engine builds and scores the POST stage
     unless ``evaluation.postprocessed`` is false (model.py:269-273)."""
     for flag, fused in ((None, False), ("auto", False), (True, True), (False, False)):
         engine = Model(network=CDAN(), config=_config(flag, tmp_path), dataloader=None)
         assert (engine._fused_eval_forward(CDAN().eval()) is not None) == fused, flag
     engine = Model(network=CDAN(), config=_config(True, tmp_path), dataloader=None)
-    with pytest.raises(RuntimeError, match="not a CDAN"):
+    with pytest.raises(RuntimeError, match="Identity, which has no served forward"):
         engine._fused_eval_forward(torch.nn.Identity())
     assert not engine.eval_on_post
     cfg = _config(None, tmp_path)
