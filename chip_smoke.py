@@ -201,7 +201,16 @@ line per phase, and exits non-zero at the first failure:
     to the 16-byte path); a CUDA graph's replay bit-equal to the eager
     call; 4 calls a CM forward and no aten CBAM or product op in its trace;
     each call's ms (CUDA events) beside its byte bounds, the plain version
-    and the eager chain + product it replaced.
+    and the eager chain + product it replaced;
+43. the depthwise 3x3 kernel (``ops.cuda.dwconv``), plain and gated, vs its
+    plain versions at the served Restormer's ten call shapes of
+    B=4·480x640 in bf16 (at most one bf16 step apart) and at two odd shapes
+    with a bias, bf16 and f32; a misaligned copy through the scalar path
+    bit-equal to the 16-byte path; 88 launches (44 gated) a served forward
+    and no aten depthwise or GELU kernel in its trace; each call's ms (CUDA
+    events) beside its bytes bound, the plain version and bf16
+    ``F.conv2d(groups=C)`` (+ ``F.gelu(a) * g``), and the 88 calls of a
+    forward summed.
 
 Phases 1-37 run the served forward with f32 activations, whatever the port's
 tuning file chose on the card (``pin_forward``: a tuning file under
@@ -1769,6 +1778,161 @@ def phase_cbam(torch, smi):
     return {"launches": cbam_cm.launches, "max_ulp_gap": worst, "ms": total,
             "plain_ms": sum(t[1] for t in times.values()),
             "library_ms": sum(t[2] for t in times.values())}
+
+
+# (output channels, H, W, gated, calls a forward) of the served Restormer's
+# depthwise 3x3 convs at B=4·480x640: MDTA's over 3C channels, GDFN's 2h -> h
+DWCONVS = [(144, 480, 640, False, 4), (288, 480, 640, False, 8), (288, 240, 320, False, 12),
+           (576, 120, 160, False, 12), (1152, 60, 80, False, 8),
+           (127, 480, 640, True, 4), (255, 480, 640, True, 8), (255, 240, 320, True, 12),
+           (510, 120, 160, True, 12), (1021, 60, 80, True, 8)]
+DWCONV_BATCH, DWCONV_HW = 4, (480, 640)
+# two shapes off the served ones: W % 8 != 0 (the scalar path), and a narrow plane
+DWCONV_ODD = [(2, 6, 33, 47), (3, 10, 5, 16)]
+
+
+def dwconv_work(calls, batch=DWCONV_BATCH, io_bytes=2):
+    """FLOPs (a multiply-add of each of the 9 taps of every input element, in
+    f32) and bytes (x read once, y written once, the weights) of depthwise
+    calls ``(c_out, H, W, gated, count)``."""
+    flops = nbytes = 0
+    for c, h, w, gated, n in calls:
+        c_in = 2 * c if gated else c
+        flops += n * 18 * batch * c_in * h * w
+        nbytes += n * ((c_in + c) * batch * h * w + 9 * c_in) * io_bytes
+    return flops, nbytes
+
+
+def phase_dwconv(torch, smi):
+    """Phase 43: the depthwise 3x3 kernel (``ops.cuda.dwconv``) against its
+    plain versions, both epilogues, at the served Restormer's ten call
+    shapes of B=4·480x640 in bf16 (at most one bf16 step apart) and at two
+    odd shapes with a bias in bf16 and f32; misaligned copies through the
+    scalar path bit-equal to the 16-byte path; 88 launches (44 gated) a
+    served forward, with no aten depthwise, GELU or gate-product kernel in
+    its trace; each call's ms (CUDA events) beside its bytes bound, the
+    plain version and the library yardstick (bf16 ``F.conv2d(groups=C)``,
+    then ``F.gelu(a) * g`` for the gate)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from multi_degradation_image_enhancement_tpu_torch.models.restormer import (
+        Restormer,
+        serving_forward,
+    )
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda import dwconv
+    from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dwconv import (
+        depthwise3x3,
+        depthwise3x3_gated,
+        depthwise3x3_gated_plain,
+        depthwise3x3_plain,
+        dwconv_plan,
+        vector_path,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(43)
+
+    def inputs(shape, gated, dtype=torch.bfloat16, bias=False):
+        c_in = shape[1] * (2 if gated else 1)
+        x = torch.randn((shape[0], c_in, *shape[2:]), device=dev, generator=gen).to(dtype)
+        w = (torch.randn((c_in, 1, 3, 3), device=dev, generator=gen) / 3).to(dtype)
+        b = torch.randn((c_in,), device=dev, generator=gen).to(dtype) if bias else None
+        return x, w, b
+
+    def entry(gated):
+        return (depthwise3x3_gated, depthwise3x3_gated_plain) if gated else (
+            depthwise3x3, depthwise3x3_plain)
+
+    def library(x, w, gated):
+        y = F.conv2d(x, w, None, padding=1, groups=x.shape[1])
+        if not gated:
+            return y
+        a, g = y.chunk(2, dim=1)
+        return F.gelu(a) * g
+
+    def compare(label, got, want):
+        if got.dtype == torch.bfloat16:
+            gap = int(bf16_ulp_gap(torch, got, want).max().item())
+            require(gap <= 1, f"{label}: kernel within one bf16 step of plain, got {gap}")
+            return gap
+        err = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+        require(err <= 1e-5, f"{label}: f32 gap {err:.2e} of the largest value (limit 1e-5)")
+        return 0
+
+    worst = 0
+    for c, h, w, gated, _ in DWCONVS:
+        x, wt, _ = inputs((DWCONV_BATCH, c, h, w), gated)
+        kernel, plain = entry(gated)
+        y = kernel(x, wt)
+        require(vector_path(x, y), f"{c}x{h}x{w}: the 16-byte path")
+        worst = max(worst, compare(f"{c}x{h}x{w} gated={gated}", y, plain(x, wt)))
+        del x, wt, y
+    for shape in DWCONV_ODD:
+        for dtype in (torch.bfloat16, torch.float32):
+            for gated in (False, True):
+                x, wt, b = inputs(shape, gated, dtype, bias=True)
+                kernel, plain = entry(gated)
+                worst = max(worst, compare(f"{shape} {dtype} gated={gated}", kernel(x, wt, b),
+                                           plain(x, wt, b)))
+    x, wt, _ = inputs((2, 64, 48, 64), True)
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=dev)
+    xs = flat[1:1 + x.numel()].view(x.shape)  # the same values 2 bytes past a 16-byte boundary
+    xs.copy_(x)
+    y = depthwise3x3_gated(x, wt)
+    ys = depthwise3x3_gated(xs, wt)
+    require(not vector_path(xs, ys), "a misaligned copy takes the scalar path")
+    require(torch.equal(ys, y), "the scalar path bit-equal to the 16-byte path")
+    require(torch.equal(depthwise3x3_gated(x, wt), y), "two calls bit-equal")
+    say("dwconv", f"the ten served call shapes of B={DWCONV_BATCH}x{DWCONV_HW}, both "
+        f"epilogues, vs plain: ok (worst {worst} bf16 step; plans "
+        f"{[tuple(dwconv_plan(DWCONV_BATCH, c, h, w)) for c, h, w, _, _ in DWCONVS]}); odd "
+        f"shapes {DWCONV_ODD} with a bias, bf16 and f32: ok; the scalar path bit-equal; two "
+        f"calls bit-equal")
+    del x, wt, xs, ys, y, flat
+
+    fwd = serving_forward(Restormer().eval().to(dev), torch.bfloat16, dev)
+    xi = torch.rand((DWCONV_BATCH, *DWCONV_HW, 3), device=dev, generator=gen)
+    fwd(xi)
+    torch.cuda.synchronize()
+    dwconv.launches = dwconv.gated_launches = 0
+    fwd(xi)
+    torch.cuda.synchronize()
+    per_forward = (dwconv.launches, dwconv.gated_launches)
+    require(per_forward == (88, 44), f"a served forward: 88 dwconv launches, 44 gated; got "
+            f"{per_forward}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fwd(xi)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    ours = sorted({k[:60] for k in names if "dw3x3_" in k})
+    eager = [k[:60] for k in names if "depthwise" in k.lower() or "gelu" in k.lower()]
+    require(ours and not eager, f"the served forward's kernels: ours {ours}, no aten depthwise "
+            f"or GELU kernel ({eager})")
+    say("dwconv", f"88 launches a served forward (44 gated); its trace names {ours} and no aten "
+        f"depthwise or GELU kernel")
+    del fwd, xi
+
+    times = {}
+    for c, h, w, gated, n in DWCONVS:
+        x, wt, _ = inputs((DWCONV_BATCH, c, h, w), gated)
+        kernel, plain = entry(gated)
+        ms = cuda_ms(lambda: kernel(x, wt), 20)
+        plain_ms = cuda_ms(lambda: plain(x, wt), 3)
+        lib_ms = cuda_ms(lambda: library(x, wt, gated), 10)
+        bound_ms = dwconv_work([(c, h, w, gated, 1)])[1] / HBM_BYTES_PER_S * 1e3
+        times[(c, h, w, gated)] = (ms, plain_ms, lib_ms, n)
+        say("dwconv", f"[{smi}] {'gated ' if gated else ''}{c}x{h}x{w} B={DWCONV_BATCH}: kernel "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_ms / ms:.1%}), plain {plain_ms:.3f} "
+            f"ms, library {lib_ms:.4f} ms; plan {tuple(dwconv_plan(DWCONV_BATCH, c, h, w))}")
+        del x, wt
+    total = {k: sum(t[i] * t[3] for t in times.values()) for i, k in enumerate(("ms", "plain", "lib"))}
+    bound_ms = dwconv_work(DWCONVS)[1] / HBM_BYTES_PER_S * 1e3
+    say("dwconv", f"[{smi}] the 88 calls of a B={DWCONV_BATCH}x{DWCONV_HW} forward: kernel "
+        f"{total['ms']:.3f} ms against {bound_ms:.3f} ms ({bound_ms / total['ms']:.1%}), library "
+        f"{total['lib']:.3f} ms, plain {total['plain']:.3f} ms")
+    return {"launches": per_forward[0], "max_ulp_gap": worst, "ms": total["ms"],
+            "plain_ms": total["plain"], "library_ms": total["lib"]}
 
 
 def bound(flops: float, nbytes: float, peak: str = "bf16"):
@@ -3952,6 +4116,7 @@ def main() -> int:
     train_tp = phase_train_throughput(torch, smi, noise_train_ms)
     up = phase_upsample(torch, smi)
     cb = phase_cbam(torch, smi)
+    dw = phase_dwconv(torch, smi)
 
     src = f"{PKG}/csrc"
     ref = "multi_degradation_image_enhancement_tpu/ops/pallas"
@@ -3970,6 +4135,7 @@ def main() -> int:
         **probe_work(),
         "bilinear_x2_add": (*upsample_work([shape for _, shape in UPSAMPLES]), "f32"),
         "cbam_cm": (*cbam_work([(*shape, with_d) for _, shape, with_d in CBAMS])[:2], "f32"),
+        "dwconv3x3": (*dwconv_work(DWCONVS), "f32"),
     }
     work["dense_block_bf16_act"] = work["dense_block"]  # the same four blocks, bf16 activations
     kernels = [
@@ -4023,6 +4189,10 @@ def main() -> int:
                     "replaces": None,  # port-only: XLA fuses the JAX forward's CBAM + product
                     "launches": cb["launches"], "max_ulp_gap": cb["max_ulp_gap"], "ms": cb["ms"],
                     "plain_ms": cb["plain_ms"], "library_ms": cb["library_ms"]})
+    kernels.append({"name": "dwconv3x3", "route": "cuda", "source": f"{src}/dwconv.cu",
+                    "replaces": None,  # port-only: the JAX package has no Restormer
+                    "launches": dw["launches"], "max_ulp_gap": dw["max_ulp_gap"], "ms": dw["ms"],
+                    "plain_ms": dw["plain_ms"], "library_ms": dw["library_ms"]})
     for name, source, replaces in (
             ("probe_matmul_bf16", "probe_matmul.cu", "benchmarks/exp_int8_reprobe.py:39"),
             ("probe_matmul_int8", "probe_matmul.cu", "benchmarks/exp_int8_reprobe.py:39"),

@@ -38,6 +38,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multi_degradation_image_enhancement_tpu_torch.ops.cuda.dwconv import (
+    depthwise3x3,
+    depthwise3x3_gated,
+)
 from multi_degradation_image_enhancement_tpu_torch.utils.tracing import span
 
 LN_EPS = 1e-5
@@ -274,12 +278,20 @@ class ServingForward:
     norms, logits and softmax are float32.  In float32 all
     of it is.  The weights are cast once, when it is built.
 
+    The depthwise 3×3 convs run through ``ops.cuda.dwconv`` (one hand-written
+    CUDA kernel on the card, its plain version on the CPU): MDTA's as
+    :func:`depthwise3x3`, GDFN's with its gate ``gelu(a) · g`` as
+    :func:`depthwise3x3_gated`, each sum and the gate in float32, rounded
+    once.  The kernel takes NCHW maps, so the forward makes its input NCHW
+    in memory first and every map stays so.
+
     Spans (``utils.tracing``, device ranges on the card): ``serve/forward``
     around a call, ``restormer/mdta`` around each block's LN1 + MDTA +
-    residual add and ``restormer/gdfn`` around its LN2 + GDFN + residual add
-    (89 device ranges a forward).  Counters ``mdta_calls`` and ``gdfn_calls``
-    add one a block, 44 each a forward of the published network, on the host
-    (no sync)."""
+    residual add and ``restormer/gdfn`` around its LN2 + GDFN + residual
+    add, and inside each ``restormer/dwconv`` around its depthwise conv (in
+    GDFN with the gate): 177 device ranges a forward.  Counters
+    ``mdta_calls`` and ``gdfn_calls`` add one a block, 44 each a forward of
+    the published network, on the host (no sync)."""
 
     def __init__(self, model: Restormer, dtype: torch.dtype, device):
         if dtype not in (torch.float32, torch.bfloat16):
@@ -291,7 +303,7 @@ class ServingForward:
 
             def cast(conv: nn.Conv2d):
                 b = None if conv.bias is None else conv.bias.detach().to(dtype)
-                return conv.weight.detach().to(dtype), b, conv.padding, conv.groups
+                return conv.weight.detach().to(dtype), b
 
             self.embed, self.out = cast(model.patch_embed.proj), cast(model.output)
             self.down = [cast(m.body[0]) for m in (model.down1_2, model.down2_3, model.down3_4)]
@@ -301,30 +313,35 @@ class ServingForward:
 
     @staticmethod
     def _conv(x: torch.Tensor, conv) -> torch.Tensor:
-        w, b, padding, groups = conv
-        return F.conv2d(x, w, b, padding=padding, groups=groups)
+        w, b = conv  # a dense conv, padded k // 2 as :func:`_conv` builds each
+        return F.conv2d(x, w, b, padding=w.shape[-1] // 2)
 
     def _level(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """The level's blocks over the float32 residual stream ``x``."""
         x = x.float()
         for blk in self.levels[name]:
             with span("restormer/mdta", device=x.device):
-                y = layer_norm(x, *blk.norm1).to(self.dtype)
-                q, k, v = self._conv(self._conv(y, blk.qkv), blk.qkv_dw).chunk(3, dim=1)
+                y = self._conv(layer_norm(x, *blk.norm1).to(self.dtype), blk.qkv)
+                with span("restormer/dwconv", device=x.device):
+                    y = depthwise3x3(y, *blk.qkv_dw)
+                q, k, v = y.chunk(3, dim=1)
                 a = channel_attention(q, k, v, blk.temperature, blk.heads)
                 x = x + self._conv(a, blk.attn_out)
             self.mdta_calls += 1
             with span("restormer/gdfn", device=x.device):
-                y = layer_norm(x, *blk.norm2).to(self.dtype)
-                a, g = self._conv(self._conv(y, blk.ffn_in), blk.ffn_dw).chunk(2, dim=1)
-                x = x + self._conv(gated_gelu(a, g), blk.ffn_out)
+                y = self._conv(layer_norm(x, *blk.norm2).to(self.dtype), blk.ffn_in)
+                with span("restormer/dwconv", device=x.device):
+                    y = depthwise3x3_gated(y, *blk.ffn_dw)
+                x = x + self._conv(y, blk.ffn_out)
             self.gdfn_calls += 1
         return x
 
     def __call__(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         with span("serve/forward", device=self.device), torch.inference_mode():
-            inp = x_nhwc.permute(0, 3, 1, 2).float()
+            # NCHW in memory, so every map after it is too (a NHWC batch's permute
+            # would carry channels_last strides through every conv)
+            inp = x_nhwc.permute(0, 3, 1, 2).float().contiguous()
             enc1 = self._level(self._conv(inp.to(dt), self.embed), "encoder_level1")
             enc2 = self._level(self._down(enc1, 0), "encoder_level2")
             enc3 = self._level(self._down(enc2, 1), "encoder_level3")

@@ -17,6 +17,7 @@ Nothing here runs at import time.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import shutil
@@ -151,6 +152,8 @@ def _declare(lib, ctypes) -> None:
         "mdie_bilinear_x2_add": [p, p, p, i, i, i64, i, i, p],
         # cbam.cu
         "mdie_cbam_cm": [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p],
+        # dwconv.cu
+        "mdie_dwconv3x3": [p, p, p, p, i, i, i, i64, i, i, i, i, p],
     }
     restypes = {"mdie_growth_bwd_scratch": i64}
     for name, argtypes in signatures.items():
@@ -196,6 +199,15 @@ def on_device(t):
     import torch
 
     return torch.cuda.device(t.device)
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA card ``index`` (132 on an H100), which the kernels'
+    plans size their grids by."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_of(t) -> int:

@@ -134,11 +134,6 @@ def _check(x: torch.Tensor, pack: Dict[str, torch.Tensor], d: Optional[torch.Ten
             raise ValueError(f"cbam_cm: d on {d.device}, x on {x.device}")
 
 
-@functools.lru_cache(maxsize=16)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def cbam_cm(x: torch.Tensor, pack: Dict[str, torch.Tensor],
             d: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``CBAM(x) · d`` (or ``CBAM(x)``) in x's dtype from the folded pack of
@@ -156,7 +151,7 @@ def cbam_cm(x: torch.Tensor, pack: Dict[str, torch.Tensor],
             _build.require(pack[key], key, torch.float32)
         b, c, h, w = x.shape
         cr = pack["w1"].shape[0]
-        plan = cbam_plan(b, c, h, w, _sms(x.device.index or 0))
+        plan = cbam_plan(b, c, h, w, _build.sm_count(x.device.index or 0))
         y = torch.empty_like(x)
         scratch = torch.empty(scratch_floats(b, c, h, w, plan.splits), dtype=torch.float32,
                               device=x.device)

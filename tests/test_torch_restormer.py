@@ -15,8 +15,9 @@ procedural images, on the CPU:
   test`` scores through ``serving_forward``; ``train.fused_dense`` /
   ``train.remat`` on a Restormer stop the build;
 * under a profiler the served forward's spans appear (``serve/forward``
-  once, ``restormer/mdta`` and ``restormer/gdfn`` 44 times each) and its
-  counters add 44 each; with none, no span is built;
+  once, ``restormer/mdta`` and ``restormer/gdfn`` 44 times each,
+  ``restormer/dwconv`` 88 times) and its counters add 44 each; with none,
+  no span is built;
 * ``flax_lecun_std`` takes a grouped conv's fan-in per group, and a CDAN's
   draws from a seed are what they were;
 * ``flops_restormer`` counts what ``FlopCounterMode`` counts over the
@@ -212,8 +213,8 @@ def test_spans_and_counters_under_a_profiler_and_nothing_without(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         apply(x)
     names = [e.name for e in prof.events()]
-    assert [names.count(n) for n in ("serve/forward", "restormer/mdta", "restormer/gdfn")] == [
-        1, 44, 44]
+    assert [names.count(n) for n in ("serve/forward", "restormer/mdta", "restormer/gdfn",
+                                     "restormer/dwconv")] == [1, 44, 44, 88]
     assert (apply.mdta_calls, apply.gdfn_calls) == (88, 88)
 
 
